@@ -1,0 +1,302 @@
+"""Command-line interface of the PyTorch port: the reference kssd's
+``shuffle`` and ``dist`` subcommands, with the arguments of
+``public_kssd_tpu.cli`` plus ``--device``.
+
+    kssd_torch shuffle   -k -s -l -o                 (command_shuffle.c:33-41)
+    kssd_torch dist      sketch / index / search     (command_dist_wrapper.c:41-65)
+
+Dispatch logic mirrors dist_dispatch (command_dist.c:53-192):
+
+  dist -r <raw seqs>  -o out          sketch refs + build index into out
+  dist -r <co+mco dir> -o out <qry>   search query co dir vs reference db
+  dist -o out <raw seqs>              sketch queries into out
+  dist -o out <co dir>                build index (stage II) into out
+
+``--device cuda`` (the default) runs the window pass and the counting in
+the hand-written kernels (csrc/) and raises when no card is visible;
+``--device cpu`` runs their plain PyTorch versions. ``set``, ``reverse``,
+``composite`` and ``convert``, combining query sketch dirs, ``--mesh``,
+``--shard``, ``--merge-shards``, ``--koc-out`` and ``--profile`` are not
+ported yet (ROADMAP.md) and exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+_NOT_PORTED = ("set", "reverse", "composite", "convert")
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="kssd_torch",
+        description="k-mer substring-space sketching (kssd-compatible) on "
+        "PyTorch with CUDA kernels",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("shuffle", help="shuffle/sampling k-mer substring space")
+    p.add_argument("-k", type=int, default=8, help="half k-mer length [8]")
+    p.add_argument("-s", type=int, default=5, help="half substring length [5]")
+    p.add_argument("-l", type=int, default=2, help="dim-reduction level [2]")
+    p.add_argument("-o", default="./default", help="output file prefix")
+    p.add_argument("--seed", type=int, default=None, help="RNG seed (reproducible)")
+    p.add_argument("--random-perm", action="store_true",
+                   help="Fisher-Yates table like the reference (the default "
+                   "is a computed Feistel permutation: identical .shuf "
+                   "format, gather-free sketching)")
+
+    p = sub.add_parser("dist", help="sketching and distance estimation")
+    p.add_argument("-k", type=int, default=8, help="half k-mer length [8]")
+    p.add_argument("-p", type=int, default=0, help="threads (accepted, unused)")
+    p.add_argument("-l", "--list", dest="fpath", default="", help="query list file")
+    p.add_argument("-L", dest="dr", default="2", help=".shuf file or dim-reduction level [2]")
+    p.add_argument("-m", dest="mmry", type=float, default=0,
+                   help="max memory GB (bounds sketch groups and search "
+                   "query batches; 0 = unbatched)")
+    p.add_argument("-n", dest="kmerocrs", type=int, default=1, help="least k-mer occurrence (fastq)")
+    p.add_argument("-Q", dest="kmerqlty", type=int, default=0, help="min base quality byte")
+    p.add_argument("-r", dest="refpath", default="", help="reference dir")
+    p.add_argument("-o", dest="outdir", default=".", help="output dir")
+    p.add_argument("-N", dest="num_neigb", type=int, default=0, help="top-N refs [0=all]")
+    p.add_argument("-D", dest="mut_dist_max", type=float, default=1.0, help="max distance")
+    p.add_argument("-M", dest="metric", type=int, default=0, help="0 Jaccard / 1 Containment")
+    p.add_argument("-O", dest="outfields", type=int, default=2, help="0 dist / 1 +qv / 2 +CI / 3 full 4-metric table")
+    p.add_argument("--correction", type=int, default=0, help="shared-count correction")
+    p.add_argument("-A", dest="abundance", action="store_true", help="abundance (koc) mode")
+    p.add_argument("-u", dest="dedup", action="store_true", help="drop repeated ref k-mers")
+    p.add_argument("--keepcofile", action="store_true",
+                   help="also write per-genome <i>.co.<c> intermediates")
+    p.add_argument("-P", dest="pipecmd", default="", help="pipe command")
+    p.add_argument("--keepskf", action="store_true", help="keep shared-kmer matrix")
+    p.add_argument("-f", dest="skf", default="", help="shared-kmer matrix path")
+    p.add_argument("--byread", action="store_true", help="sketch by read")
+    p.add_argument("--component-sz", type=int, default=7, help="component space exponent [7]")
+    p.add_argument("--device-index", action="store_true",
+                   help="run the stage II inversion sort on --device "
+                   "(identical artifacts)")
+    p.add_argument("--no-dense-index", action="store_true",
+                   help="skip the reference-format dense mco.index "
+                   "export (2 GiB at CSZ=7); the CSR sidecar is always "
+                   "written and is what search loads")
+    p.add_argument("--no-compat-order", action="store_true",
+                   help="sort-unique dedup; sketch files sorted, distances unchanged")
+    p.add_argument("--cpu-count", action="store_true",
+                   help="count on the host (numpy oracle), not on --device")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the sketch and count kernels: "
+                   "cuda runs the hand-written kernels, cpu their plain "
+                   "PyTorch versions [cuda]")
+    # accepted so that kssd_tpu command lines parse, then rejected: not
+    # ported yet (ROADMAP.md)
+    p.add_argument("--koc-out", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--shard", default="", help=argparse.SUPPRESS)
+    p.add_argument("--merge-shards", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default="", help=argparse.SUPPRESS)
+    p.add_argument("--profile", default="", help=argparse.SUPPRESS)
+    p.add_argument("remaining", nargs="*", help="query files/dirs")
+
+    for name in _NOT_PORTED:
+        sub.add_parser(name, help="not yet ported")
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _NOT_PORTED:
+        print(
+            f"kssd_torch {argv[0]}: not yet ported to public_kssd_tpu_torch "
+            "(ROADMAP.md); use kssd_tpu",
+            file=sys.stderr,
+        )
+        return 2
+    args = parser.parse_args(argv)
+    if args.command == "shuffle":
+        return _cmd_shuffle(args)
+    return _cmd_dist(args)
+
+
+def _cmd_shuffle(args) -> int:
+    from public_kssd_tpu_torch import formats, shufspace
+    from public_kssd_tpu_torch.config import MIN_SUBCTX_DIM_SMP_SZ, SketchParams
+
+    if args.k < args.s:
+        sys.exit("shuffle: half k-mer length must be >= half substring length")
+    if args.s >= 8:
+        sys.exit("shuffle: subk should be smaller than 8")
+    dim_after = 1 << (4 * (args.s - args.l))
+    if dim_after < MIN_SUBCTX_DIM_SMP_SZ:
+        print(
+            f"warning: dimension after reduction {dim_after} < suggested minimum "
+            f"{MIN_SUBCTX_DIM_SMP_SZ}; -s {args.l + 3} is suggested",
+            file=sys.stderr,
+        )
+    params = SketchParams.create(k=args.k, drlevel=args.l, subk=args.s, seed=args.seed)
+    if args.random_perm:
+        perm = formats.make_shuffled_dim(params, seed=args.seed)
+    else:
+        # computed space: header id doubles as the Feistel seed, making
+        # the .shuf self-describing (shufspace.detect)
+        perm = shufspace.make_feistel_dim(params)
+    formats.write_shuf(args.o + ".shuf", params, perm)
+    print(
+        f"kssd_torch shuffle: shuf_id={params.id}, k = {params.k}, "
+        f"halfCtxLen = {params.subk}, level= {params.drlevel}"
+    )
+    return 0
+
+
+def _is_co_dir(path: str) -> bool:
+    from public_kssd_tpu_torch import formats
+
+    return os.path.isfile(os.path.join(path, formats.CO_DSTAT))
+
+
+def _is_mco_dir(path: str) -> bool:
+    from public_kssd_tpu_torch import formats
+
+    return os.path.isfile(os.path.join(path, formats.MCO_DSTAT))
+
+
+def _load_params(args):
+    """(params, shuf) where shuf is a ComputedShuf when the .shuf encodes
+    a Feistel space (gather-free kernel), else the permutation table."""
+    from public_kssd_tpu_torch import formats, shufspace
+    from public_kssd_tpu_torch.config import SketchParams
+
+    if os.path.isfile(args.dr):
+        params, perm = formats.read_shuf(args.dr, component_sz=args.component_sz)
+        computed = shufspace.detect(params, perm)
+        return params, (computed if computed is not None else perm)
+    params = SketchParams.create(
+        k=args.k, drlevel=int(args.dr), component_sz=args.component_sz
+    )
+    perm = shufspace.make_feistel_dim(params)
+    os.makedirs(args.outdir, exist_ok=True)
+    shuf_path = os.path.join(args.outdir, "default.shuf")
+    formats.write_shuf(shuf_path, params, perm)
+    print(f"generated {shuf_path} (shuf_id={params.id})")
+    return params, shufspace.ComputedShuf(params.id, params.half_subctx_len)
+
+
+def _reject_unported(args) -> None:
+    for flag, given in (
+        ("--koc-out", args.koc_out),
+        ("--shard", args.shard),
+        ("--merge-shards", args.merge_shards),
+        ("--mesh", args.mesh),
+        ("--profile", args.profile),
+    ):
+        if given:
+            sys.exit(
+                f"kssd_torch dist: {flag} is not yet ported to "
+                "public_kssd_tpu_torch (ROADMAP.md); use kssd_tpu"
+            )
+
+
+def _cmd_dist(args) -> int:
+    from public_kssd_tpu_torch import (
+        index, infiles, pipeline, resolve_device, search,
+    )
+    from public_kssd_tpu_torch.ops import stats as stats_ops
+
+    _reject_unported(args)
+    device = resolve_device(args.device)
+    index_device = device if args.device_index else None
+    opts = pipeline.SketchOptions(
+        abundance=args.abundance,
+        min_occurrence=args.kmerocrs,
+        min_qual=args.kmerqlty,
+        uniq=args.dedup,
+        byread=args.byread,
+        pipecmd=args.pipecmd or None,
+        compat_order=not args.no_compat_order,
+        keepcofile=args.keepcofile,
+    )
+    out_opts = stats_ops.OutputOptions(
+        metric=stats_ops.Metric(args.metric),
+        fields=stats_ops.Fields(args.outfields),
+        correction=bool(args.correction),
+        max_dist=args.mut_dist_max,
+        top_n=args.num_neigb,
+    )
+
+    # --- reference side (command_dist.c:60-107) ---
+    if args.refpath:
+        if not (_is_co_dir(args.refpath) or _is_mco_dir(args.refpath)):
+            # raw sequences: sketch + index into outdir
+            files = infiles.organize_infiles([args.refpath])
+            if not files:
+                sys.exit(f"no valid input files in {args.refpath}")
+            params, perm = _load_params(args)
+            ref_opts = pipeline.SketchOptions(**{
+                **opts.__dict__, "abundance": False  # command_dist.c:94
+            })
+            pipeline.run_stage1(files, args.outdir, params, perm, ref_opts,
+                                mem_gb=args.mmry, device=device)
+            index.run_stage2(args.outdir, args.outdir, args.component_sz,
+                             dense=not args.no_dense_index,
+                             device=index_device)
+            args.refpath = args.outdir
+        elif _is_co_dir(args.refpath) and not _is_mco_dir(args.refpath):
+            index.run_stage2(args.refpath, args.refpath, args.component_sz,
+                             dense=not args.no_dense_index,
+                             device=index_device)
+
+    # --- query side (command_dist.c:108-190) ---
+    if args.remaining or args.fpath:
+        qry = args.remaining[0] if args.remaining else ""
+        qry_is_co = bool(qry) and _is_co_dir(qry) and not args.pipecmd
+
+        if args.refpath:
+            if not _is_mco_dir(args.refpath):
+                sys.exit("need the ref db dir (with index) for -r search mode")
+            if not qry_is_co:
+                sys.exit(
+                    "search mode needs a sketched query dir: run "
+                    "'kssd_torch dist -L <shuf> -o <qdir> <seqs>' first"
+                )
+            search.search(
+                args.refpath,
+                qry,
+                args.outdir,
+                out_opts,
+                device=None if args.cpu_count else device,
+                keep_shared_kmer=args.keepskf,
+                shared_kmer_path=args.skf or None,
+                mem_gb=args.mmry,
+            )
+            return 0
+        if qry_is_co:
+            if len(args.remaining) != 1:
+                print(
+                    "kssd_torch dist: combining query sketch dirs is not yet "
+                    "ported to public_kssd_tpu_torch (ROADMAP.md); use kssd_tpu",
+                    file=sys.stderr,
+                )
+                return 2
+            index.run_stage2(qry, args.outdir, args.component_sz,
+                             dense=not args.no_dense_index,
+                             device=index_device)
+            return 0
+        # raw sequences -> sketch into outdir
+        if args.fpath:
+            files = infiles.organize_infile_list(args.fpath)
+        else:
+            files = infiles.organize_infiles(args.remaining, fmt_ck=not args.pipecmd)
+        if not files:
+            sys.exit("please specify valid query sequences")
+        params, perm = _load_params(args)
+        pipeline.run_stage1(files, args.outdir, params, perm, opts,
+                            mem_gb=args.mmry, device=device)
+        return 0
+    if args.refpath and _is_mco_dir(args.refpath):
+        print(
+            f"{args.refpath} is already indexed and no query was given; "
+            "nothing to do (pass a sketched query dir to search)",
+            file=sys.stderr,
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+// Shared-k-mer counting: query sketch codes x CSR inverted index ->
+// count matrix [n_qry, n_ref] (the search hot loop).
+//
+// Replaces public_kssd_tpu/ops/count.py:_count_rowgather together with
+// its pair-capacity retry loop (_run_counting): that design expands every
+// (query code x posting) pair into a fixed-capacity buffer and
+// scatter-adds; here each thread walks its own postings and adds with
+// integer atomics, so there is no capacity, no retry, and the counts are
+// exact and independent of order.
+//
+// One thread per query code (grid-stride): a lower-bound binary search of
+// the code in the sorted unique DB codes, then, on a hit, one atomicAdd
+// per posting into counts[qid * n_ref + gid]. Indexing is 64-bit, so the
+// matrix size is bounded only by device memory.
+//
+// What bounds it on an H100: dependent global loads (log2(nnz) probes per
+// code, mostly L2 hits for the upper levels of the search) and the
+// atomics. A skew in postings-list length makes threads uneven (a later
+// design: warp-per-code for long rows, shared-memory staging).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+count_shared_kernel(const uint32_t* __restrict__ qry_codes,
+                    const int32_t* __restrict__ qry_qid, int64_t n_codes,
+                    const uint32_t* __restrict__ uniq, int64_t nnz,
+                    const int64_t* __restrict__ offsets,
+                    const uint32_t* __restrict__ gids, int64_t n_ref,
+                    uint32_t* __restrict__ counts) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_codes; i += stride) {
+    const int32_t q = qry_qid[i];
+    if (q < 0) continue;
+    const uint32_t code = qry_codes[i];
+    int64_t lo = 0, hi = nnz;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (uniq[mid] < code) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (lo >= nnz || uniq[lo] != code) continue;
+    uint32_t* row = counts + static_cast<int64_t>(q) * n_ref;
+    const int64_t end = offsets[lo + 1];
+    for (int64_t j = offsets[lo]; j < end; ++j) {
+      atomicAdd(row + gids[j], 1u);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int kssd_count_shared(const void* qry_codes, const void* qry_qid,
+                                 int64_t n_codes, const void* uniq,
+                                 int64_t nnz, const void* offsets,
+                                 const void* gids, int64_t n_ref,
+                                 void* counts, void* stream) {
+  if (n_codes <= 0 || nnz <= 0) return 0;
+  int64_t blocks = (n_codes + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond one wave
+  count_shared_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(qry_codes),
+      static_cast<const int32_t*>(qry_qid), n_codes,
+      static_cast<const uint32_t*>(uniq), nnz,
+      static_cast<const int64_t*>(offsets),
+      static_cast<const uint32_t*>(gids), n_ref,
+      static_cast<uint32_t*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}

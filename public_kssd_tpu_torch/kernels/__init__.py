@@ -1,0 +1,139 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point that launches its
+kernel on the stream it is given and returns ``cudaGetLastError()``. It is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into
+``build/public_kssd_tpu_torch/`` under the checkout, at first use, under a
+name keyed by the source's hash and the flags, and loaded with ctypes.
+Nothing is compiled when this module is imported.
+
+A build failure (no ``nvcc``, a compile error) raises ``KernelBuildError``
+with the compiler's output; a launch that returns an error raises
+``KernelLaunchError``. Callers never fall back to another path on either.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(_PKG), "build", "public_kssd_tpu_torch"
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME (default /usr/local/cuda), else from PATH."""
+    cand = os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
+    )
+    if os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError(
+            f"nvcc not found (looked for {cand} and on PATH): the CUDA "
+            "kernels cannot be built"
+        )
+    return found
+
+
+class CudaKernel:
+    """One kernel library: lazily built and loaded, with a launch count.
+
+    ``launches`` counts the successful launches through ``launch`` and
+    nothing else, so a run can show that its path went through the
+    kernel."""
+
+    def __init__(self, name: str, entry: str, argtypes: list):
+        self.name = name
+        self.entry = entry
+        self.argtypes = argtypes
+        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.launches = 0
+        self._fn = None
+
+    def so_path(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        with open(self.source, "rb") as f:
+            h.update(f.read())
+        return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:16]}.so")
+
+    def build(self) -> str:
+        """Compile the source unless this exact build exists; returns the
+        library path. Writes a temporary name first and renames it, so a
+        concurrent process never loads a half-written library."""
+        so = self.so_path()
+        if os.path.exists(so):
+            return so
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, self.source]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed for {self.source} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, so)
+        return so
+
+    def function(self):
+        if self._fn is None:
+            lib = ctypes.CDLL(self.build())
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Launch through the C entry; raise on a nonzero cudaError_t."""
+        err = self.function()(*args)
+        if err != 0:
+            raise KernelLaunchError(
+                f"{self.entry} returned cudaError_t {err}"
+            )
+        self.launches += 1
+
+
+sketch_kernel = CudaKernel(
+    "sketch", "kssd_sketch_dense",
+    [_P, _I64, _I64, _I, _I, _U32, _U64, _U64, _I, _I, _I, _I, _I,
+     _U32, _U32, _U32, _U32, _P, _P, _P],
+)
+count_kernel = CudaKernel(
+    "count", "kssd_count_shared",
+    [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P],
+)
+ALL = (sketch_kernel, count_kernel)
+
+
+def stream_handle(device) -> int:
+    """The raw cudaStream_t of torch's current stream on ``device``."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

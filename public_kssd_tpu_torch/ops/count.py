@@ -1,0 +1,229 @@
+"""Shared-k-mer counting: the search hot loop.
+
+The reference walks, per query code, the inverted-index postings list and
+increments a query x ref counter matrix with OpenMP threads
+(mco_cbdco_nobin_dist, command_dist.c:763-790). Here the walk runs on the
+device:
+
+  * ``count_shared_kernel`` — the wrapper of the hand-written kernel
+    ``csrc/count.cu`` (one thread per query code: a lower-bound binary
+    search in the sorted unique DB codes, then one integer atomic add per
+    posting). It launches the kernel for CUDA tensors and runs the plain
+    version for CPU tensors.
+  * ``count_shared_torch`` — the plain PyTorch version (``searchsorted``
+    on int64, ``repeat_interleave`` expansion, ``bincount``).
+  * ``count_shared_np`` — the host numpy oracle (reference semantics).
+
+Codes are unsigned 32-bit values. Tensors carry them as int32 bit views
+(the kernel reads them as uint32) and the plain version widens them to
+int64 with ``& 0xFFFFFFFF``, so codes >= 2^31 keep their order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from public_kssd_tpu_torch import kernels, resolve_device
+
+_M32 = 0xFFFFFFFF
+
+
+def _u32_view(a: np.ndarray) -> torch.Tensor:
+    """uint32 numpy array -> int32 tensor with the same bits (CPU)."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype="<u4").view(np.int32))
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit view of uint32 values -> their int64 values."""
+    return t.to(torch.int64) & _M32
+
+
+@dataclasses.dataclass
+class DeviceIndex:
+    """One component's CSR inverted index, resident on ``device``.
+
+    ``uniq`` int32 [nnz] (bit view of the ascending uint32 codes),
+    ``offsets`` int64 [nnz+1], ``gids`` int32 [total]."""
+
+    uniq: torch.Tensor
+    offsets: torch.Tensor
+    gids: torch.Tensor
+    n_ref: int
+    device: torch.device
+
+    @classmethod
+    def from_sparse(cls, sparse_index, device: torch.device) -> "DeviceIndex":
+        """The device-resident form of an ``index.SparseIndex`` (numpy
+        ``uniq_codes`` <u4, ``offsets`` <u8, ``gids`` <u4), cached on the
+        index object: -m batched search runs many counting calls against
+        one DB and uploads it once."""
+        device = resolve_device(device)
+        cached = getattr(sparse_index, "_device_index", None)
+        if cached is not None and cached.device == device:
+            return cached
+        offs = np.asarray(sparse_index.offsets)
+        if offs.size and int(offs[-1]) >= 1 << 63:
+            raise ValueError("postings total does not fit int64")
+        gids = np.asarray(sparse_index.gids)
+        if gids.size and int(gids.max()) >= 1 << 31:
+            raise ValueError("genome ids must be < 2^31")
+        dev = cls(
+            uniq=_u32_view(sparse_index.uniq_codes).to(device),
+            offsets=torch.from_numpy(offs.astype(np.int64)).to(device),
+            gids=torch.from_numpy(gids.astype(np.int32)).to(device),
+            n_ref=int(sparse_index.n_genomes),
+            device=device,
+        )
+        sparse_index._device_index = dev
+        return dev
+
+
+def count_shared_torch(
+    qry_codes: torch.Tensor,  # int32 [L] bit view of uint32 query codes
+    qry_qid: torch.Tensor,  # int32 [L] query id per code
+    index: DeviceIndex,
+    n_qry: int,
+) -> torch.Tensor:
+    """Plain version: int32 [n_qry, n_ref] shared-code counts on the
+    device of the inputs."""
+    dev = qry_codes.device
+    n_ref = index.n_ref
+    uniq = _widen(index.uniq)
+    codes = _widen(qry_codes)
+    nnz = uniq.numel()
+    if nnz == 0 or codes.numel() == 0:
+        return torch.zeros((n_qry, n_ref), dtype=torch.int32, device=dev)
+    row = torch.searchsorted(uniq, codes)
+    row_c = row.clamp(max=nnz - 1)
+    found = (row < nnz) & (uniq[row_c] == codes)
+    row_f = row_c[found]
+    starts = index.offsets[row_f]
+    lens = index.offsets[row_f + 1] - starts
+    qids = qry_qid[found].to(torch.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return torch.zeros((n_qry, n_ref), dtype=torch.int32, device=dev)
+    # ragged expansion: posting j of found code i sits at starts[i] + j
+    seg_start = torch.cumsum(lens, 0) - lens
+    within = torch.arange(total, dtype=torch.int64, device=dev) - (
+        torch.repeat_interleave(seg_start, lens)
+    )
+    pos = torch.repeat_interleave(starts, lens) + within
+    rid = index.gids[pos].to(torch.int64)
+    flat = torch.repeat_interleave(qids, lens) * n_ref + rid
+    counts = torch.bincount(flat, minlength=n_qry * n_ref)
+    return counts.to(torch.int32).reshape(n_qry, n_ref)
+
+
+def count_shared_kernel(
+    qry_codes: torch.Tensor,
+    qry_qid: torch.Tensor,
+    index: DeviceIndex,
+    n_qry: int,
+) -> torch.Tensor:
+    """int32 [n_qry, n_ref] shared-code counts: ``csrc/count.cu`` for
+    CUDA tensors, ``count_shared_torch`` for CPU tensors.
+
+    The count matrix is indexed with 64-bit offsets inside the kernel, so
+    n_qry * n_ref is bounded only by device memory."""
+    if qry_codes.device.type != "cuda":
+        return count_shared_torch(qry_codes, qry_qid, index, n_qry)
+    for name, t in (("qry_codes", qry_codes), ("qry_qid", qry_qid)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device != index.device:
+            raise TypeError(
+                f"{name} must be a 1-D int32 tensor on {index.device}"
+            )
+    if qry_qid.numel() != qry_codes.numel():
+        raise ValueError("qry_codes and qry_qid differ in length")
+    qry_codes = qry_codes.contiguous()
+    qry_qid = qry_qid.contiguous()
+    counts = torch.zeros(
+        (n_qry, index.n_ref), dtype=torch.int32, device=qry_codes.device
+    )
+    with torch.cuda.device(qry_codes.device):
+        kernels.count_kernel.launch(
+            qry_codes.data_ptr(), qry_qid.data_ptr(), qry_codes.numel(),
+            index.uniq.data_ptr(), index.uniq.numel(),
+            index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
+            counts.data_ptr(), kernels.stream_handle(qry_codes.device),
+        )
+    return counts
+
+
+def query_ids(qry_index: np.ndarray, n_codes: int) -> np.ndarray:
+    """Query id of every code position from the cumulative index."""
+    return np.searchsorted(
+        qry_index[1:], np.arange(n_codes, dtype=np.uint64), "right"
+    ).astype(np.int32)
+
+
+def count_shared(
+    qry_codes: np.ndarray,
+    qry_index: np.ndarray,
+    sparse_index,
+    n_qry: int,
+    device: torch.device | None = None,
+) -> np.ndarray:
+    """Count shared k-mers of all queries against one component's index
+    -> uint32 [n_qry, n_ref]. ``device=None`` runs the host oracle; a
+    device runs ``count_shared_kernel`` on it."""
+    n_ref = sparse_index.n_genomes
+    if device is None or qry_codes.size == 0:
+        return count_shared_np(
+            qry_codes,
+            qry_index,
+            sparse_index.uniq_codes,
+            sparse_index.offsets,
+            sparse_index.gids,
+            n_qry,
+            n_ref,
+        )
+    index = DeviceIndex.from_sparse(sparse_index, device)
+    qc = _u32_view(qry_codes).to(index.device)
+    qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
+    counts = count_shared_kernel(qc, qq, index, n_qry)
+    return counts.cpu().numpy().view(np.uint32)
+
+
+def count_shared_np(
+    qry_codes: np.ndarray,
+    qry_index: np.ndarray,
+    uniq_codes: np.ndarray,
+    offsets: np.ndarray,
+    gids: np.ndarray,
+    n_qry: int,
+    n_ref: int,
+) -> np.ndarray:
+    """Host (numpy) counting — reference semantics, used for small inputs
+    and as the oracle in tests."""
+    counts = np.zeros((n_qry, n_ref), dtype=np.uint32)
+    qid_of = np.searchsorted(
+        qry_index[1:], np.arange(qry_codes.size, dtype=np.uint64), "right"
+    )
+    row = np.searchsorted(uniq_codes, qry_codes)
+    row_c = np.clip(row, 0, max(uniq_codes.size - 1, 0))
+    found = (row < uniq_codes.size) & (uniq_codes[row_c] == qry_codes)
+    starts = offsets[row_c][found].astype(np.int64)
+    lens = (offsets[row_c + 1] - offsets[row_c])[found].astype(np.int64)
+    qids = qid_of[found]
+    if lens.sum() == 0:
+        return counts
+    expanded_gids = gids[_ragged_indices_np(starts, lens)]
+    expanded_qids = np.repeat(qids, lens)
+    np.add.at(counts, (expanded_qids, expanded_gids.astype(np.int64)), 1)
+    return counts
+
+
+def _ragged_indices_np(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """[s0..s0+l0) ++ [s1..s1+l1) ++ ... as one flat index array."""
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    rep_starts = np.repeat(starts.astype(np.int64), lens)
+    cum = np.cumsum(lens)
+    ar = np.arange(total, dtype=np.int64)
+    within = ar - np.repeat(cum - lens, lens)
+    return rep_starts + within

@@ -1,0 +1,366 @@
+"""Sketch kernel: base-code streams -> kept sketch codes (drtuples).
+
+The reference's rolling scalar loop (fasta2co hot loop,
+iseq2comem.c:205-270) becomes one independent computation per window
+start p over W = 2k bases:
+
+  window fwd value  F[p] = sum_j b[p+j] * 4^(W-1-j)
+  window rc  value  R[p] = sum_j (3-b[p+j]) * 4^j
+  canonical         U[p] = min(F[p], R[p])               (iseq2comem.c:245)
+  inner substring   I[p] = (U[p] >> 2(k-s)) & (16^s - 1) (iseq2comem.c:246)
+  rank              P[p] = Feistel(I[p]) or table[I[p]]
+  keep              dim_start <= P[p] < dim_end           (iseq2comem.c:248)
+  drtuple           ((U & undomask) + ((U & right) << 4s)) >> 4l + P
+                                                          (iseq2comem.c:250-253)
+
+``sketch_windows_math`` is the plain PyTorch version (int64 tensors: torch
+has no arithmetic on unsigned 32/64-bit tensors). ``sketch_windows_dense``
+is the wrapper of the hand-written kernel ``csrc/sketch.cu``: it launches
+the kernel for CUDA tensors and uses the plain version for CPU tensors.
+
+Streaming (``_stream_packed``): the host packs each block of symbols to 2
+bits per base (16 per uint32 word), the device computes one code per
+window and compacts survivors with ``torch.nonzero`` (ascending position =
+sequence order), and the host drops survivors whose window reaches past
+the block's real length or covers a BREAK, by position. Only narrow
+geometries (drtuple <= 31 bits, i.e. k - l <= 7) are ported; wider ones
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from public_kssd_tpu_torch import kernels, shufspace
+from public_kssd_tpu_torch.config import SketchParams
+from public_kssd_tpu_torch.seqio import BREAK
+
+SENTINEL32 = -1  # dense int32 code of a dropped window (uint32 0xFFFFFFFF)
+
+_WIDE_MSG = (
+    "geometries with k - l > 7 (32..60-bit sketch codes) are not ported to "
+    "public_kssd_tpu_torch yet (ROADMAP.md: wide-geometry sketch kernel)"
+)
+
+
+def as_shuf(shuf, device: torch.device):
+    """A shuffle space as the sketch functions take it: a ComputedShuf
+    (Feistel, evaluated in registers) as is, or a permutation table as an
+    int32 tensor on ``device``."""
+    if isinstance(shuf, shufspace.ComputedShuf):
+        return shuf
+    if isinstance(shuf, torch.Tensor):
+        return shuf.to(device=device, dtype=torch.int32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(shuf, dtype=np.int32)).to(device)
+
+
+def _norm_shuf(shuf):
+    """Split a shuffle-space argument into (table|None, ComputedShuf|None)."""
+    if isinstance(shuf, shufspace.ComputedShuf):
+        return None, shuf
+    return shuf, None
+
+
+def sketch_windows_math(
+    symbols: torch.Tensor,  # uint8 [N] base codes 0..3 or BREAK(4)
+    shuffled_dim: torch.Tensor | None,  # int32 [16^s] or None with computed
+    params: SketchParams,
+    computed: shufspace.ComputedShuf | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(drtuple int64 [M], keep bool [M]) for all M = N-W+1 windows, on
+    the device of ``symbols``.
+
+    ``drtuple`` entries where ``keep`` is False are arbitrary. Order of
+    windows == sequence order, matching the reference scanner's emission
+    order. Values stay below 2^57 for every narrow geometry (W <= 28), so
+    int64 holds them without sign effects.
+    """
+    W = params.TL
+    n = symbols.shape[0]
+    m = max(n - W + 1, 0)
+    dev = symbols.device
+    if m == 0:
+        return (
+            torch.zeros(0, dtype=torch.int64, device=dev),
+            torch.zeros(0, dtype=torch.bool, device=dev),
+        )
+
+    b = symbols.to(torch.int64)
+    fwd = torch.zeros(m, dtype=torch.int64, device=dev)
+    rc = torch.zeros(m, dtype=torch.int64, device=dev)
+    for j in range(W):
+        bj = b[j : j + m]
+        fwd = (fwd << 2) | bj
+        rc = rc | ((3 ^ bj) << (2 * j))
+
+    # validity: no break inside [p, p+W)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    brk_pos = torch.where(symbols >= BREAK, pos, torch.full_like(pos, -1))
+    last_brk = torch.cummax(brk_pos, dim=0).values
+    valid = last_brk[W - 1 : W - 1 + m] < pos[:m]
+
+    uni = torch.minimum(fwd, rc)
+    inner = (uni >> (2 * params.half_outctx_len)) & (params.dim_shuf_len - 1)
+    if computed is not None:
+        pf = shufspace.feistel_torch(inner, computed.seed, computed.subctx_len)
+    else:
+        pf = shuffled_dim[inner].to(torch.int64)
+    keep = valid & (pf >= params.dim_start) & (pf < params.dim_end)
+
+    left = uni & params.undomask
+    right = (uni & params.rightmask) << (4 * params.half_subctx_len)
+    drtuple = ((left + right) >> (4 * params.drlevel)) + (pf - params.dim_start)
+    return drtuple, keep
+
+
+def sketch_windows_dense_math(
+    symbols: torch.Tensor, shuffled_dim, params: SketchParams
+) -> torch.Tensor:
+    """Plain dense form: int32 [N], position p holds the code of the
+    window starting at p, SENTINEL32 where dropped (including the last
+    W-1 positions, whose windows run past the stream)."""
+    table, computed = _norm_shuf(shuffled_dim)
+    drtuple, keep = sketch_windows_math(symbols, table, params, computed)
+    dense = torch.full(
+        (symbols.shape[0],), SENTINEL32, dtype=torch.int32, device=symbols.device
+    )
+    m = drtuple.shape[0]
+    dense[:m] = torch.where(keep, drtuple, SENTINEL32).to(torch.int32)
+    return dense
+
+
+def unpack2(words: torch.Tensor) -> torch.Tensor:
+    """int32 (bit view of uint32) words -> uint8 base codes, 16 per word,
+    low bits first (the layout of ``pack2``)."""
+    shifts = torch.arange(16, dtype=torch.int64, device=words.device) * 2
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return ((w[:, None] >> shifts) & 3).to(torch.uint8).reshape(-1)
+
+
+def sketch_windows_dense_plain(
+    words: torch.Tensor, n_valid: int, shuffled_dim, params: SketchParams
+) -> torch.Tensor:
+    """Plain version of ``sketch_windows_dense`` (same arguments, same
+    result) on the device of ``words``: unpack, mark every symbol from
+    ``n_valid`` on as BREAK, run the dense window math."""
+    sym = unpack2(words)
+    sym[n_valid:] = BREAK
+    return sketch_windows_dense_math(sym, shuffled_dim, params)
+
+
+def _check_narrow(params: SketchParams) -> None:
+    if params.drtuple_bits > 31:
+        raise NotImplementedError(_WIDE_MSG)
+
+
+def sketch_windows_dense(
+    words: torch.Tensor,  # int32 [n_words]: pack2 output, bit view
+    n_valid: int,
+    shuffled_dim,  # ComputedShuf or int32 [16^s] tensor on words.device
+    params: SketchParams,
+) -> torch.Tensor:
+    """int32 [n_words*16] per-window sketch codes, SENTINEL32 where the
+    window is filtered out or reaches past ``n_valid`` symbols.
+
+    CUDA tensors launch ``csrc/sketch.cu``; CPU tensors run the plain
+    version on the unpacked symbols."""
+    _check_narrow(params)
+    if words.device.type != "cuda":
+        return sketch_windows_dense_plain(words, n_valid, shuffled_dim, params)
+    table, computed = _norm_shuf(shuffled_dim)
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise TypeError("words must be a 1-D int32 tensor (pack2 bit view)")
+    words = words.contiguous()
+    if table is not None:
+        if (
+            table.device != words.device
+            or table.dtype != torch.int32
+            or table.numel() != params.dim_shuf_len
+        ):
+            raise TypeError(
+                "shuffle table must be int32 [16^s] on the device of words"
+            )
+        table = table.contiguous()
+        keys = (0, 0, 0, 0)
+    else:
+        keys = computed.keys
+    out = torch.empty(words.numel() * 16, dtype=torch.int32, device=words.device)
+    with torch.cuda.device(words.device):
+        kernels.sketch_kernel.launch(
+            words.data_ptr(), words.numel(), int(n_valid), params.TL,
+            2 * params.half_outctx_len, params.dim_shuf_len - 1,
+            params.undomask, params.rightmask, 4 * params.half_subctx_len,
+            4 * params.drlevel, params.dim_start, params.dim_end,
+            2 * params.half_subctx_len, *keys,
+            table.data_ptr() if table is not None else None,
+            out.data_ptr(), kernels.stream_handle(words.device),
+        )
+    return out
+
+
+def pack2(symbols: np.ndarray, total: int) -> np.ndarray:
+    """Host-side 2-bit packing: uint8 codes -> uint32 words (16 bases each).
+
+    BREAK symbols are packed as code 0 — the caller records break
+    positions separately and filters survivors by position (the device
+    never sees breaks). ``total`` (multiple of 16) pads with code 0.
+    Uses the native C packer when available, numpy otherwise.
+    """
+    from public_kssd_tpu_torch import native
+
+    out = native.pack2(symbols, total)
+    if out is not None:
+        return out
+    a = np.zeros(total, np.uint8)
+    np.bitwise_and(symbols, 3, out=a[: symbols.size])
+    a = a.reshape(-1, 4)
+    by = a[:, 0] | (a[:, 1] << 2) | (a[:, 2] << 4) | (a[:, 3] << 6)
+    return by.view("<u4")
+
+
+def _iter_chunks(pieces, block: int, W: int):
+    """Assemble an iterator of symbol arrays into (global_start, chunk)
+    blocks of at most ``block`` symbols, consecutive blocks overlapping
+    by W-1 so every window is seen exactly once. Consumes ``pieces``
+    lazily, so upstream parsing overlaps downstream work. Block sizes
+    ramp up (4M -> 8M -> ... -> block) so the first block starts as soon
+    as about one genome has parsed."""
+    carry = np.zeros(0, np.uint8)
+    gstart = 0
+    target = min(1 << 22, block)
+    for piece in pieces:
+        if piece.size == 0:
+            continue
+        carry = np.concatenate([carry, piece]) if carry.size else piece
+        while carry.size >= target:
+            yield gstart, carry[:target]
+            gstart += target - (W - 1)
+            carry = carry[target - (W - 1):]
+            target = min(target * 2, block)
+    if carry.size >= W:
+        yield gstart, carry
+
+
+def _stream_packed(
+    pieces,
+    shuffled_dim,
+    params: SketchParams,
+    block: int,
+    device: torch.device,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Packed streaming core: 2-bit-packed uploads, dense window pass,
+    ``torch.nonzero`` compaction on the device, host-side position
+    filtering of break windows. Returns (codes uint64, positions int64)
+    in sequence order."""
+    shuf = as_shuf(shuffled_dim, device)
+    W = params.TL
+    out_codes: list[np.ndarray] = []
+    out_pos: list[np.ndarray] = []
+    for gstart, chunk in _iter_chunks(pieces, block, W):
+        bucket = min(block, max(4096, 1 << (chunk.size - 1).bit_length()))
+        brks = np.flatnonzero(chunk >= BREAK).astype(np.int64)
+        words = torch.from_numpy(pack2(chunk, bucket).view(np.int32)).to(device)
+        dense = sketch_windows_dense(words, chunk.size, shuf, params)
+        lpos_dev = torch.nonzero(dense != SENTINEL32).squeeze(1)
+        lpos = lpos_dev.cpu().numpy()
+        codes = dense[lpos_dev].cpu().numpy().astype(np.uint64)
+        # host-side validity: window fully inside the real chunk AND
+        # break-free (window at local p covers [p, p+W))
+        keep = lpos <= chunk.size - W
+        if brks.size:
+            keep &= np.searchsorted(brks, lpos + W - 1, "right") == (
+                np.searchsorted(brks, lpos, "left")
+            )
+        out_pos.append(lpos[keep] + gstart)
+        out_codes.append(codes[keep])
+    if not out_codes:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    return np.concatenate(out_codes), np.concatenate(out_pos)
+
+
+def sketch_codes_stream(
+    symbols: np.ndarray,
+    shuffled_dim,
+    params: SketchParams,
+    block: int = 1 << 24,
+    *,
+    device: torch.device,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Stream a symbol array through the device kernel in blocks; returns
+    (codes uint64, window start positions int64), both in sequence
+    order."""
+    _check_narrow(params)
+    if symbols.size < params.TL:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    return _stream_packed([symbols], shuffled_dim, params, block, device)
+
+
+def sketch_codes_multi(
+    streams,
+    shuffled_dim,
+    params: SketchParams,
+    block: int = 1 << 24,
+    *,
+    device: torch.device,
+) -> list[np.ndarray]:
+    """Sketch MANY symbol streams (list OR lazy iterator) in one
+    concatenated device pass.
+
+    Streams are joined with BREAK separators; kept codes are attributed
+    back to their stream by window position. A lazy ``streams`` iterator
+    lets host parsing overlap the device pass (pipeline.parsed_streams).
+    """
+    _check_narrow(params)
+    brk = np.array([BREAK], dtype=np.uint8)
+    bounds = [0]
+
+    def pieces():
+        # a stream may itself be an iterator of symbol pieces (the
+        # bounded-RAM file streaming of seqio.stream_*_codes)
+        for s in streams:
+            if isinstance(s, np.ndarray):
+                size = s.size
+                yield s
+            else:
+                size = 0
+                for p in s:
+                    size += p.size
+                    yield p
+            yield brk
+            bounds.append(bounds[-1] + size + 1)
+
+    codes, pos = _stream_packed(pieces(), shuffled_dim, params, block, device)
+    nb = np.asarray(bounds, dtype=np.int64)  # complete once collected
+    sid = np.searchsorted(nb, pos, side="right") - 1
+    return [codes[sid == i] for i in range(nb.size - 1)]
+
+
+def sketch_codes_reads(
+    reads: list[np.ndarray],
+    shuffled_dim,
+    params: SketchParams,
+    *,
+    device: torch.device,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Sketch a list of reads; returns (codes, read_id) arrays with codes
+    in (read, position) order — the --byread streaming layout
+    (reads2mco, iseq2comem.c:78-186).
+
+    Reads are concatenated with BREAK separators and pushed through the
+    same windowed kernel, so one device pass covers the whole batch.
+    """
+    if not reads:
+        return np.zeros(0, np.uint64), np.zeros(0, np.int64)
+    brk = np.array([BREAK], dtype=np.uint8)
+    pieces = []
+    bounds = np.zeros(len(reads) + 1, dtype=np.int64)
+    for i, r in enumerate(reads):
+        pieces.append(r)
+        pieces.append(brk)
+        bounds[i + 1] = bounds[i] + r.size + 1
+    symbols = np.concatenate(pieces)
+    codes, pos = sketch_codes_stream(symbols, shuffled_dim, params, device=device)
+    # window starting at p belongs to the read whose span contains p
+    read_id = np.searchsorted(bounds, pos, side="right") - 1
+    return codes, read_id

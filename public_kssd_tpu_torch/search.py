@@ -1,0 +1,177 @@
+"""Search: query sketch dir vs reference index dir -> distance.out.
+
+Orchestrates the counting kernel over components and the statistics
+printer; mirrors mco_cbdco_nobin_dist (command_dist.c:670-808) +
+dist_print_nobin (:1161-1250) including the sharedk_ct.dat artifact
+(--keepskf / -f resume, command_dist.c:735-738, 1164, 1249) and the -m
+memory-governed query batching (:707-768). Counting runs on a torch
+device (csrc/count.cu on a CUDA card) or, with ``device=None``, in the
+host oracle. The koc (abundance-weighted) appendix and the sharded mesh
+search are not ported yet (ROADMAP.md: koc-weighted counting,
+parallel/ on torch.distributed).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from public_kssd_tpu_torch import formats, index as index_mod, utils
+from public_kssd_tpu_torch.ops import count as count_ops
+from public_kssd_tpu_torch.ops import stats as stats_ops
+
+PAGE_SZ = 4096  # reference batches in sysconf(_SC_PAGESIZE) units (:747)
+
+
+_KOC_MSG = (
+    "abundance-weighted (koc) counting is not ported to "
+    "public_kssd_tpu_torch yet (ROADMAP.md: koc-weighted counting)"
+)
+_MESH_MSG = (
+    "sharded search is not ported to public_kssd_tpu_torch yet "
+    "(ROADMAP.md: parallel/ on torch.distributed)"
+)
+
+
+class ShufIdMismatch(ValueError):
+    pass
+
+
+def query_batch_size(n_qry: int, n_ref: int, mem_gb: float) -> int:
+    """Queries per counting batch under the -m budget: the reference's
+    num_cof_batch = (mem/(ref_num*4*page_sz)) * page_sz (command_dist.c:
+    745-752, where the unit is pages of the mmap'ed count matrix)."""
+    if mem_gb <= 0:
+        return n_qry
+    num_unit_mem = int(mem_gb * 1e9) // (n_ref * 4 * PAGE_SZ)
+    return max(min(num_unit_mem * PAGE_SZ, n_qry), 1)
+
+
+def compute_shared_counts(
+    qry_dir: str,
+    ref_components: list[index_mod.SparseIndex],
+    n_qry: int,
+    device: torch.device | None = None,
+    counts_out: np.ndarray | None = None,
+    batch: int = 0,
+    koc_out: np.ndarray | None = None,
+) -> np.ndarray:
+    """Sum shared-code counts across components -> uint32 [n_qry, n_ref].
+
+    ``device`` runs the counting there (``None``: the host oracle).
+    ``counts_out`` (e.g. a np.memmap over sharedk_ct.dat) bounds host RAM
+    the way the reference's mmap does; ``batch`` bounds the query rows
+    materialised per device call. ``koc_out`` (abundance-weighted
+    counts) is not ported yet and raises.
+    """
+    if koc_out is not None:
+        raise NotImplementedError(_KOC_MSG)
+    n_ref = ref_components[0].n_genomes
+    counts = (
+        counts_out
+        if counts_out is not None
+        else np.zeros((n_qry, n_ref), dtype=np.uint32)
+    )
+    batch = batch or n_qry
+    for c, sp in enumerate(ref_components):
+        codes, idx = formats.read_combco(qry_dir, c)
+        for q0 in range(0, n_qry, batch):
+            q1 = min(q0 + batch, n_qry)
+            lo, hi = int(idx[q0]), int(idx[q1])
+            sub_idx = idx[q0 : q1 + 1] - idx[q0]
+            counts[q0:q1] += count_ops.count_shared(
+                codes[lo:hi], sub_idx, sp, q1 - q0, device
+            )
+    return counts
+
+
+def search(
+    ref_dir: str,
+    qry_dir: str,
+    out_dir: str,
+    opts: stats_ops.OutputOptions | None = None,
+    device: torch.device | None = None,
+    keep_shared_kmer: bool = False,
+    shared_kmer_path: str | None = None,
+    mesh=None,
+    mem_gb: float = 0.0,
+    koc: bool = False,
+) -> str:
+    """Full search -> ``<out_dir>/distance.out``; returns its path.
+
+    ``shared_kmer_path`` (-f) skips counting and reprints statistics from
+    a saved sharedk_ct.dat matrix; ``keep_shared_kmer`` (--keepskf)
+    retains the matrix file after printing. ``mem_gb`` (-m) batches
+    queries through counting and disk-backs the count matrix so peak RAM
+    is bounded by the budget, not the DB size. ``device`` runs the
+    counting there (``None``: the host oracle). ``mesh`` and ``koc`` are
+    not ported yet and raise ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_MESH_MSG)
+    if koc:
+        raise NotImplementedError(_KOC_MSG)
+    opts = opts or stats_ops.OutputOptions()
+    timer = utils.StageTimer()
+    mco_stat = formats.read_mco_stat(ref_dir)
+    qry_stat = formats.read_co_stat(qry_dir)
+    if qry_stat.params_id != mco_stat.params_id:
+        raise ShufIdMismatch(
+            f"qry shuf_id {qry_stat.params_id} != ref shuf_id {mco_stat.params_id}"
+        )
+    if qry_stat.comp_num != mco_stat.comp_num:
+        raise ValueError(
+            f"qry comp_num {qry_stat.comp_num} != ref comp_num {mco_stat.comp_num}"
+        )
+    os.makedirs(out_dir, exist_ok=True)
+    n_qry, n_ref = qry_stat.infile_num, mco_stat.infile_num
+    skf = shared_kmer_path or os.path.join(out_dir, "sharedk_ct.dat")
+    if shared_kmer_path:
+        counts = np.fromfile(skf, dtype="<u4").reshape(n_qry, n_ref)
+    else:
+        with timer.stage("load_index"):
+            _, comps = index_mod.load_sparse_index(ref_dir)
+        with timer.stage("count"):
+            # the count matrix is disk-backed under -m, exactly like
+            # the reference's ftruncate+mmap (command_dist.c:742-748)
+            if mem_gb > 0:
+                counts = np.memmap(
+                    skf, dtype="<u4", mode="w+", shape=(n_qry, n_ref)
+                )
+            else:
+                counts = np.zeros((n_qry, n_ref), dtype=np.uint32)
+            compute_shared_counts(
+                qry_dir, comps, n_qry, device,
+                counts_out=counts,
+                batch=query_batch_size(n_qry, n_ref, mem_gb),
+            )
+            if isinstance(counts, np.memmap):
+                counts.flush()
+            else:
+                counts.astype("<u4").tofile(skf)
+        pairs = int(n_qry) * int(n_ref)
+        dt = timer.stages.get("count", [0.0])[0]
+        utils.log.info(
+            "search: %d x %d pairs in %.3fs (%.0f pairs/s) [%s]",
+            n_qry, n_ref, dt, pairs / dt if dt else 0.0, timer.report(),
+        )
+
+    out_path = os.path.join(out_dir, "distance.out")
+    stats_ops.write_distance_out(
+        out_path,
+        counts,
+        mco_stat.ctx_ct,
+        qry_stat.ctx_ct,
+        mco_stat.names,
+        qry_stat.names,
+        qry_stat.kmerlen,
+        qry_stat.dim_rd_len,
+        opts,
+    )
+    if not keep_shared_kmer and not shared_kmer_path:
+        if isinstance(counts, np.memmap):
+            del counts
+        os.remove(skf)
+    return out_path

@@ -1,0 +1,220 @@
+"""The port's sketch module (public_kssd_tpu_torch.ops.sketch) against the
+JAX package's, on the CPU: same seeded numpy inputs through both, exact
+equality (everything is integer arithmetic).
+
+On the CPU the kernel wrapper ``sketch_windows_dense`` runs its plain
+PyTorch version; the CUDA kernel itself is compared with that version on
+the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from public_kssd_tpu import shufspace as jax_shufspace
+from public_kssd_tpu.config import SketchParams as JaxParams
+from public_kssd_tpu.ops import pallas_sketch, sketch as jax_sketch
+from public_kssd_tpu_torch import kernels, shufspace
+from public_kssd_tpu_torch.config import SketchParams
+from public_kssd_tpu_torch.ops import sketch
+from public_kssd_tpu_torch.seqio import BREAK
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+GEOMETRIES = [(10, 6, 3), (8, 5, 2), (7, 5, 2), (6, 5, 1)]
+
+
+def _params(k, s, l):
+    return (
+        SketchParams(id=77, half_ctx_len=k, half_subctx_len=s, drlevel=l),
+        JaxParams(id=77, half_ctx_len=k, half_subctx_len=s, drlevel=l),
+    )
+
+
+def _shufs(p, mode, seed):
+    """(port shuffle space, JAX shuffle space) for one mode: the Feistel
+    space, or a seeded Fisher-Yates table as a foreign .shuf holds."""
+    if mode == "feistel":
+        return (
+            shufspace.ComputedShuf(p.id, p.half_subctx_len),
+            jax_shufspace.ComputedShuf(p.id, p.half_subctx_len),
+        )
+    table = np.random.default_rng(seed).permutation(p.dim_shuf_len)
+    table = table.astype(np.int32)
+    return sketch.as_shuf(table, CPU), table
+
+
+def _symbols(n, seed, n_breaks=40):
+    rng = np.random.default_rng(seed)
+    sym = rng.integers(0, 4, size=n).astype(np.uint8)
+    sym[rng.integers(0, n, size=n_breaks)] = BREAK
+    return sym
+
+
+def _jax_dense(sym, jshuf, jp):
+    """JAX dense form: uint32 code per window start, SENTINEL32 where
+    dropped (including the last W-1 positions)."""
+    table, computed = jax_sketch._norm_shuf(jshuf)
+    dr, keep = jax_sketch.sketch_windows(sym, table, jp, computed)
+    dr, keep = np.asarray(dr), np.asarray(keep)
+    dense = np.full(sym.size, jax_sketch.SENTINEL32, np.uint32)
+    dense[: dr.size] = np.where(keep, dr, jax_sketch.SENTINEL32)
+    return dense
+
+
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+@pytest.mark.parametrize("k,s,l", GEOMETRIES)
+def test_sketch_windows_math_matches_jax(k, s, l, mode):
+    p, jp = _params(k, s, l)
+    shuf, jshuf = _shufs(p, mode, seed=k)
+    sym = _symbols(1 << 16, seed=k)
+    table, computed = sketch._norm_shuf(shuf)
+    dr, keep = sketch.sketch_windows_math(torch.from_numpy(sym), table, p, computed)
+    jtable, jcomputed = jax_sketch._norm_shuf(jshuf)
+    jdr, jkeep = jax_sketch.sketch_windows(sym, jtable, jp, jcomputed)
+    jdr, jkeep = np.asarray(jdr), np.asarray(jkeep)
+    np.testing.assert_array_equal(keep.numpy(), jkeep)
+    np.testing.assert_array_equal(
+        dr.numpy()[jkeep].astype(np.uint64), jdr[jkeep]
+    )
+    assert jkeep.sum() > 0
+
+
+@pytest.mark.parametrize("k,s,l", GEOMETRIES)
+def test_dense_math_matches_pallas_interpret(k, s, l):
+    """The plain dense form equals the Pallas kernel (interpret mode),
+    run as tests/test_pallas_sketch.py runs it."""
+    p, jp = _params(k, s, l)
+    comp, jcomp = _shufs(p, "feistel", seed=0)
+    sym = _symbols(8192, seed=k)
+    want = np.asarray(
+        pallas_sketch.sketch_windows_pallas(sym, jp, jcomp.seed, interpret=True)
+    )
+    got = sketch.sketch_windows_dense_math(torch.from_numpy(sym), comp, p)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+@pytest.mark.parametrize("k,s,l", [(10, 6, 3), (8, 5, 2), (6, 5, 1)])
+def test_dense_wrapper_on_cpu_matches_jax(k, s, l, mode):
+    """The kernel wrapper on CPU tensors: packed words, windows past
+    n_valid dropped, no BREAK reaching the device."""
+    p, jp = _params(k, s, l)
+    shuf, jshuf = _shufs(p, mode, seed=k + 1)
+    n = 1 << 14
+    n_valid = n - 1000
+    sym = np.random.default_rng(k).integers(0, 4, size=n).astype(np.uint8)
+    words = torch.from_numpy(sketch.pack2(sym, n).view(np.int32))
+    got = sketch.sketch_windows_dense(words, n_valid, shuf, p)
+    ref = sym.copy()
+    ref[n_valid:] = BREAK
+    np.testing.assert_array_equal(
+        got.numpy().view(np.uint32), _jax_dense(ref, jshuf, jp)
+    )
+    assert kernels.sketch_kernel.launches == 0  # CPU: plain version only
+
+
+def test_pack2_unpack2_roundtrip():
+    sym = np.random.default_rng(5).integers(0, 4, size=1000).astype(np.uint8)
+    words = sketch.pack2(sym, 1024)
+    np.testing.assert_array_equal(words, jax_sketch.pack2(sym, 1024))
+    back = sketch.unpack2(torch.from_numpy(words.view(np.int32))).numpy()
+    np.testing.assert_array_equal(back[:1000], sym)
+    assert not back[1000:].any()
+
+
+@pytest.mark.parametrize("s", [3, 5])
+def test_feistel_torch_matches_numpy(s):
+    """The int64 Feistel twin over the whole 16^s domain."""
+    seed = 0x5EED + s
+    inner = np.arange(1 << (4 * s), dtype=np.uint32)
+    want = jax_shufspace.feistel(np, inner, seed, s)
+    got = shufspace.feistel_torch(torch.from_numpy(inner.astype(np.int64)), seed, s)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize(
+    "k,s,l,mode,block",
+    [
+        (8, 5, 2, "feistel", 65536),
+        (10, 6, 3, "table", 65536),
+        (10, 6, 3, "feistel", 1 << 24),
+    ],
+)
+def test_sketch_codes_stream_matches_jax(k, s, l, mode, block):
+    """Chunked blocks (overlapping by W-1), breaks and the tail filter."""
+    p, jp = _params(k, s, l)
+    shuf, jshuf = _shufs(p, mode, seed=3)
+    sym = _symbols(300_000, seed=11, n_breaks=500)
+    codes, pos = sketch.sketch_codes_stream(sym, shuf, p, block=block, device=CPU)
+    jcodes, jpos = jax_sketch.sketch_codes_stream(sym, jshuf, jp, block=block)
+    np.testing.assert_array_equal(codes, jcodes)
+    np.testing.assert_array_equal(pos, jpos)
+    assert codes.dtype == np.uint64 and codes.size > 0
+
+
+def test_sketch_codes_stream_homopolymer_burst():
+    """A burst of survivors (one kept k-mer tiled over 20 kb): every
+    survivor comes back in order (tests/test_pallas_sketch.py:72-95)."""
+    p, jp = _params(10, 6, 3)
+    comp, jcomp = _shufs(p, "feistel", seed=0)
+    rng = np.random.default_rng(3)
+    sym = rng.integers(0, 4, size=65536).astype(np.uint8)
+    probe = rng.integers(0, 4, size=p.TL).astype(np.uint8)
+    tries = 0
+    while jax_sketch.sketch_codes_host(probe, jcomp, jp).size == 0:
+        tries += 1
+        probe = rng.integers(0, 4, size=p.TL).astype(np.uint8)
+        assert tries < 100_000
+    sym[10_000:30_000] = np.tile(probe, 20_000 // p.TL)[:20_000]
+    codes, pos = sketch.sketch_codes_stream(sym, comp, p, device=CPU)
+    jcodes, jpos = jax_sketch.sketch_codes_stream(sym, jcomp, jp)
+    np.testing.assert_array_equal(codes, jcodes)
+    np.testing.assert_array_equal(pos, jpos)
+    assert codes.size > jax_sketch._row_cap(jp)
+
+
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+def test_sketch_codes_multi_matches_jax(mode):
+    """Many streams in one pass, one of them a lazy piece iterator, one
+    shorter than a window, across several chunked blocks."""
+    p, jp = _params(8, 5, 2)
+    shuf, jshuf = _shufs(p, mode, seed=9)
+    rng = np.random.default_rng(21)
+    streams = [_symbols(int(n), seed=int(n)) for n in rng.integers(5, 60_000, 12)]
+    streams[3] = streams[3][:7]
+
+    def with_iterator():
+        out = list(streams)
+        big = out[5]
+        out[5] = iter([big[:1000], big[1000:]])
+        return out
+
+    got = sketch.sketch_codes_multi(
+        with_iterator(), shuf, p, block=65536, device=CPU
+    )
+    want = jax_sketch.sketch_codes_multi(with_iterator(), jshuf, jp, block=65536)
+    assert len(got) == len(want) == len(streams)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert sum(g.size for g in got) > 0
+
+
+def test_sketch_codes_reads_matches_jax():
+    p, jp = _params(8, 5, 2)
+    comp, jcomp = _shufs(p, "feistel", seed=0)
+    rng = np.random.default_rng(4)
+    reads = [_symbols(int(n), seed=int(n), n_breaks=1) for n in rng.integers(1, 400, 300)]
+    codes, rid = sketch.sketch_codes_reads(reads, comp, p, device=CPU)
+    jcodes, jrid = jax_sketch.sketch_codes_reads(reads, jcomp, jp)
+    np.testing.assert_array_equal(codes, jcodes)
+    np.testing.assert_array_equal(rid, jrid)
+    assert codes.size > 0
+
+
+def test_wide_geometry_not_ported():
+    p, _ = _params(12, 6, 3)  # 36-bit codes
+    comp, _ = _shufs(p, "feistel", seed=0)
+    with pytest.raises(NotImplementedError, match="wide-geometry"):
+        sketch.sketch_codes_stream(_symbols(1000, 1), comp, p, device=CPU)

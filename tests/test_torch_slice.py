@@ -1,0 +1,285 @@
+"""The port's main path (stage I sketch -> stage II index -> search, and
+the kssd_torch CLI) against the reference goldens (tests/golden/) and the
+JAX package, byte for byte, on the CPU (--device cpu: the plain PyTorch
+versions of the kernels)."""
+
+import contextlib
+import gzip
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import assert_co_stat_equal, assert_files_equal
+
+from public_kssd_tpu import cli as jax_cli
+from public_kssd_tpu import formats as jax_formats
+from public_kssd_tpu import pipeline as jax_pipeline
+from public_kssd_tpu_torch import cli, formats, index, pipeline, search, shufspace
+from public_kssd_tpu_torch.ops import stats as stats_ops
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+SHUF = {7: "fix_k8.shuf", 4: "fix_k7.shuf"}
+COMPS = {7: 1, 4: 16}
+
+
+@contextlib.contextmanager
+def _cd(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def _stage1_both(root, csz):
+    """Sketch the golden ref/qry genome sets with the port (torch_*) and
+    with the JAX package (torchjax_*), in the golden's own file order."""
+    with _cd(root):
+        params, shuf = formats.read_shuf(SHUF[csz], component_sz=csz)
+        jparams, jshuf = jax_formats.read_shuf(SHUF[csz], component_sz=csz)
+        assert shufspace.detect(params, shuf) is None  # a table, not Feistel
+        for tag in ("ref", "qry"):
+            names = formats.read_co_stat(f"{tag}_co").names
+            pipeline.run_stage1(names, f"torch_{tag}", params, shuf, device=CPU)
+            jax_pipeline.run_stage1(names, f"torchjax_{tag}", jparams, jshuf)
+    return root
+
+
+@pytest.fixture(scope="module")
+def slice7(golden7):
+    root = _stage1_both(golden7, 7)
+    index.run_stage2(f"{root}/torch_ref", f"{root}/torch_ref", 7, dense=False)
+    return root
+
+
+@pytest.fixture(scope="module")
+def slice4(golden4):
+    return _stage1_both(golden4, 4)
+
+
+def _cmp_combco(root, a, b, comp_num, abund=False):
+    for c in range(comp_num):
+        names = [f"combco.{c}", f"combco.index.{c}"]
+        if abund:
+            names.append(f"combco.{c}.a")
+        for f in names:
+            assert_files_equal(f"{root}/{a}/{f}", f"{root}/{b}/{f}", f"{b}/{f}")
+    assert_co_stat_equal(f"{root}/{a}", f"{root}/{b}")
+
+
+# ---------------------------------------------------------------- stage I
+
+@pytest.mark.parametrize("csz", [7, 4])
+@pytest.mark.parametrize("tag", ["ref", "qry"])
+def test_stage1_combco_parity(slice7, slice4, csz, tag):
+    root = slice7 if csz == 7 else slice4
+    _cmp_combco(root, f"{tag}_co", f"torch_{tag}", COMPS[csz])
+    _cmp_combco(root, f"torchjax_{tag}", f"torch_{tag}", COMPS[csz])
+
+
+@pytest.mark.parametrize(
+    "gdir,kwargs",
+    [
+        ("fq_plain", {}),
+        ("fq_n2", dict(min_occurrence=2)),
+        ("fq_q40", dict(min_qual=40)),
+        ("fq_koc", dict(abundance=True)),
+        ("deep_koc", dict(abundance=True)),
+    ],
+)
+def test_fastq_parity(golden7, gdir, kwargs):
+    with _cd(golden7):
+        params, shuf = formats.read_shuf(SHUF[7], component_sz=7)
+        stat = formats.read_co_stat(gdir)
+        pipeline.run_stage1(
+            stat.names, f"torch_{gdir}", params, shuf,
+            pipeline.SketchOptions(**kwargs), device=CPU,
+        )
+    _cmp_combco(golden7, gdir, f"torch_{gdir}", 1, abund=stat.koc)
+
+
+def test_byread_parity(golden7):
+    with _cd(golden7):
+        params, shuf = formats.read_shuf(SHUF[7], component_sz=7)
+        opts = pipeline.SketchOptions(byread=True)
+        for src, gdir in (("g0.fasta", "fa_byread"), ("reads0.fq", "fq_byread")):
+            pipeline.run_stage1([src], f"torch_{gdir}", params, shuf, opts,
+                                device=CPU)
+            for f in ("combco.0", "combco.index.0"):
+                assert_files_equal(f"{gdir}/{f}", f"torch_{gdir}/{f}")
+
+
+# ---------------------------------------------------------------- stage II
+
+def test_index_postings_parity(slice7):
+    assert_files_equal(f"{slice7}/ref_co/mco.0", f"{slice7}/torch_ref/mco.0")
+
+
+def test_index_device_sort_parity(slice7):
+    """--device-index: the sign-safe torch.sort gives the same files."""
+    out = f"{slice7}/torch_ref_devsort"
+    index.run_stage2(f"{slice7}/torch_ref", out, 7, dense=False, device=CPU)
+    for f in ("mco.0", "mco.uniq.0", "mco.csroff.0", "mcofiles.stat"):
+        assert_files_equal(f"{slice7}/torch_ref/{f}", f"{out}/{f}", f)
+
+
+# ---------------------------------------------------------------- search
+
+@pytest.mark.parametrize(
+    "name,kwargs",
+    [
+        ("distout", {}),
+        ("dv_m1", dict(metric=stats_ops.Metric.CONTAINMENT)),
+        ("dv_o0", dict(fields=stats_ops.Fields.DIST)),
+        ("dv_o1", dict(fields=stats_ops.Fields.QV)),
+        ("dv_n2", dict(top_n=2)),
+        ("dv_corr", dict(correction=True)),
+        ("dv_d02", dict(max_dist=0.2)),
+    ],
+)
+def test_distance_out_parity(slice7, name, kwargs):
+    search.search(
+        f"{slice7}/torch_ref", f"{slice7}/torch_qry",
+        f"{slice7}/torch_{name}", stats_ops.OutputOptions(**kwargs),
+        device=CPU,
+    )
+    assert_files_equal(
+        f"{slice7}/{name}/distance.out", f"{slice7}/torch_{name}/distance.out"
+    )
+
+
+def test_search_batched_keepskf_and_resume(slice7):
+    """-m batching (one query per counting call, disk-backed matrix),
+    --keepskf, then -f reprints the same file from sharedk_ct.dat."""
+    out = f"{slice7}/torch_m"
+    search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry", out,
+                  device=CPU, keep_shared_kmer=True, mem_gb=1e-5)
+    assert search.query_batch_size(3, 4, 1e-5) == 1
+    assert_files_equal(f"{slice7}/distout/distance.out", f"{out}/distance.out")
+    skf = f"{out}/sharedk_ct.dat"
+    resumed = f"{slice7}/torch_f"
+    search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry", resumed,
+                  shared_kmer_path=skf)
+    assert_files_equal(f"{slice7}/distout/distance.out",
+                       f"{resumed}/distance.out")
+
+
+def test_search_rejects_unported(slice7):
+    with pytest.raises(NotImplementedError, match="koc-weighted"):
+        search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry",
+                      f"{slice7}/torch_koc", device=CPU, koc=True)
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry",
+                      f"{slice7}/torch_mesh", device=CPU, mesh=object())
+
+
+# ---------------------------------------------------------------- CLI
+
+TUTORIAL_FILES = [
+    "F.shuf",
+    "ref/combco.0", "ref/combco.index.0", "ref/cofiles.stat",
+    "ref/mco.0", "ref/mco.uniq.0", "ref/mco.csroff.0", "ref/mcofiles.stat",
+    "qry/combco.0", "qry/combco.index.0", "qry/cofiles.stat",
+    "out/distance.out",
+]
+
+
+def _mutated_queries(golden7, qdir):
+    """Query genomes that share k-mers with the references: refs 0 and 2
+    with 1% and 4% point mutations, beside an unrelated golden query."""
+    os.makedirs(qdir)
+    rng = np.random.default_rng(17)
+    for i, rate in ((0, 0.01), (2, 0.04)):
+        with gzip.open(f"{golden7}/genomes/g{i}.fasta.gz", "rb") as f:
+            raw = np.frombuffer(f.read(), np.uint8).copy()
+        bases = np.flatnonzero(np.isin(raw, np.frombuffer(b"ACGT", np.uint8)))
+        hit = bases[rng.random(bases.size) < rate]
+        raw[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, hit.size)]
+        with open(f"{qdir}/mut{i}.fasta", "wb") as f:
+            f.write(raw.tobytes())
+    shutil.copy(f"{golden7}/qry/g0.fasta.gz", f"{qdir}/g0.fasta.gz")
+    return qdir
+
+
+@pytest.fixture(scope="module")
+def tutorial(golden7, tmp_path_factory):
+    """The dist tutorial through both CLIs on a Feistel .shuf:
+    shuffle -> sketch+index refs -> sketch queries -> search."""
+    root = str(tmp_path_factory.mktemp("tutorial"))
+    qdir = _mutated_queries(golden7, f"{root}/queries")
+    for main, tag, extra in (
+        (jax_cli.main, "jax", []),
+        (cli.main, "torch", ["--device", "cpu"]),
+    ):
+        d = os.path.join(root, tag)
+        os.makedirs(d)
+        assert main(["shuffle", "-k", "8", "-s", "5", "-l", "2", "--seed", "7",
+                     "-o", f"{d}/F"]) == 0
+        assert main(["dist", "-r", f"{golden7}/genomes", "-L", f"{d}/F.shuf",
+                     "-o", f"{d}/ref", "--no-dense-index", *extra]) == 0
+        assert main(["dist", "-L", f"{d}/F.shuf", "-o", f"{d}/qry", qdir,
+                     *extra]) == 0
+        assert main(["dist", "-r", f"{d}/ref", "-o", f"{d}/out", f"{d}/qry",
+                     *extra]) == 0
+    return root
+
+
+@pytest.mark.parametrize("rel", TUTORIAL_FILES)
+def test_cli_tutorial_matches_jax(tutorial, rel):
+    assert_files_equal(f"{tutorial}/jax/{rel}", f"{tutorial}/torch/{rel}", rel)
+
+
+def test_cli_tutorial_outputs(tutorial):
+    params, perm = formats.read_shuf(f"{tutorial}/torch/F.shuf")
+    assert shufspace.detect(params, perm) is not None  # Feistel space
+    with open(f"{tutorial}/torch/out/distance.out") as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 1 + 3 * 4
+    stat = formats.read_co_stat(f"{tutorial}/torch/qry")
+    assert stat.infile_num == 3 and stat.all_ctx_ct > 0
+
+
+def test_cli_tutorial_counts_device_equals_host(tutorial):
+    """The mutated queries share k-mers with their references; the
+    plain PyTorch counting equals the host oracle on them."""
+    _, comps = index.load_sparse_index(f"{tutorial}/torch/ref")
+    qry = f"{tutorial}/torch/qry"
+    a = search.compute_shared_counts(qry, comps, 3, None)
+    b = search.compute_shared_counts(qry, comps, 3, CPU)
+    np.testing.assert_array_equal(a, b)
+    names = formats.read_co_stat(qry).names
+    for q, name in enumerate(names):
+        if "mut" in name:  # its own reference shares most codes
+            r = int(name.split("mut")[1][0])
+            assert a[q].argmax() == r and a[q, r] > a[q].sum() // 2
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["set", "-u", "x"],
+        ["reverse", "-L", "x.shuf", "y"],
+        ["composite", "-r", "x", "-q", "y"],
+        ["convert", "krona", "x"],
+    ],
+)
+def test_cli_unported_subcommands_exit_2(argv, capsys):
+    assert cli.main(argv) == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "flag", [["--mesh", "2x4"], ["--shard", "0:2"], ["--merge-shards"],
+             ["--koc-out"], ["--profile", "trace"]],
+)
+def test_cli_unported_dist_flags_rejected(tutorial, flag):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        cli.main(["dist", "-r", f"{tutorial}/torch/ref", "-o",
+                  f"{tutorial}/torch/out_x", f"{tutorial}/torch/qry",
+                  "--device", "cpu", *flag])
