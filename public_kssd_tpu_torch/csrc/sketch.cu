@@ -1,8 +1,16 @@
 // Window sketch kernel: 2-bit packed base stream -> one sketch code per
 // window start (the drtuple, or -1 where the window is dropped).
 //
-// Replaces public_kssd_tpu/ops/pallas_sketch.py:_sketch_kernel (launched
-// by sketch_windows_pallas). For each window start p over W = 2k bases:
+// Replaces public_kssd_tpu/ops/pallas_sketch.py:_sketch_kernel, in both of
+// its launches: sketch_windows_pallas (drtuples <= 31 bits, entry
+// kssd_sketch_dense, int32 codes) and sketch_windows_pallas_wide (32..64-bit
+// drtuples, k - l >= 8, entry kssd_sketch_dense_wide, int64 codes). The TPU
+// wide kernel split each code into two uint32 planes with explicit carries;
+// here the window and the code are native 64-bit values, so the two entries
+// differ only in the type they store, and the wide one also covers k = 16
+// (W = 32), which the TPU kernel left to its jnp path.
+//
+// For each window start p over W = 2k bases:
 //   fwd   = b[p] b[p+1] ... b[p+W-1]            (2 bits per base, MSB first)
 //   rc    = sum_j (3 - b[p+j]) << 2j            (reverse complement)
 //   uni   = min(fwd, rc)                        (canonical k-mer)
@@ -14,7 +22,8 @@
 //
 // What bounds it on an H100: integer ALU work per window (about W shift/or
 // steps per strand on a 64-bit value, plus four Feistel rounds), not
-// memory: it reads 4 bytes per 16 windows and writes 4 bytes per window.
+// memory: it reads 4 bytes per 16 windows and writes 4 (narrow) or 8
+// (wide) bytes per window.
 // The design keeps the window value in registers as one native uint64
 // (no hi/lo split), stages the block's packed words (256 windows plus the
 // W-1 halo) in shared memory once, and unpacks bases from there.
@@ -63,11 +72,13 @@ __device__ __forceinline__ uint32_t feistel(uint32_t inner, const Geometry& g) {
   return (left << g.half_bits) | right;
 }
 
+// Code: int32_t for drtuples below 2^31, int64_t (uint64 bits) for wider
+template <typename Code>
 __global__ void __launch_bounds__(kThreads)
 sketch_dense_kernel(const uint32_t* __restrict__ words, int64_t n_words,
                     int64_t n_valid, Geometry g,
                     const int32_t* __restrict__ table,
-                    int32_t* __restrict__ out) {
+                    Code* __restrict__ out) {
   __shared__ uint32_t tile[kWords];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads;
   const int64_t w0 = base / 16;
@@ -79,7 +90,7 @@ sketch_dense_kernel(const uint32_t* __restrict__ words, int64_t n_words,
 
   const int64_t p = base + threadIdx.x;
   if (p >= n_words * 16) return;
-  int32_t code = -1;
+  Code code = -1;
   if (p + g.W <= n_valid) {
     uint64_t fwd = 0, rc = 0;
     for (int j = 0; j < g.W; ++j) {
@@ -97,30 +108,46 @@ sketch_dense_kernel(const uint32_t* __restrict__ words, int64_t n_words,
       const uint64_t right = (uni & g.rightmask) << g.right_shift;
       const uint64_t dr = ((left + right) >> g.dr_shift) +
                           static_cast<uint64_t>(rank - g.dim_start);
-      code = static_cast<int32_t>(dr);  // drtuple < 2^31
+      code = static_cast<Code>(dr);
     }
   }
   out[p] = code;
 }
 
-}  // namespace
-
-extern "C" int kssd_sketch_dense(const void* words, int64_t n_words,
-                                 int64_t n_valid, int W, int outshift,
-                                 uint32_t inner_mask, uint64_t undomask,
-                                 uint64_t rightmask, int right_shift,
-                                 int dr_shift, int dim_start, int dim_end,
-                                 int half_bits, uint32_t k0, uint32_t k1,
-                                 uint32_t k2, uint32_t k3, const void* table,
-                                 void* out, void* stream) {
+template <typename Code>
+int launch(const void* words, int64_t n_words, int64_t n_valid, const Geometry& g,
+           const void* table, void* out, void* stream) {
   if (n_words <= 0) return 0;
-  if (W < 1 || W > 32) return static_cast<int>(cudaErrorInvalidValue);
-  Geometry g{W, outshift, inner_mask, undomask, rightmask, right_shift,
-             dr_shift, dim_start, dim_end, half_bits, {k0, k1, k2, k3}};
   const int64_t n = n_words * 16;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  sketch_dense_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sketch_dense_kernel<Code><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), n_words, n_valid, g,
-      static_cast<const int32_t*>(table), static_cast<int32_t*>(out));
+      static_cast<const int32_t*>(table), static_cast<Code*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both entries take the same arguments; the drtuple has 2W - dr_shift bits.
+#define KSSD_SKETCH_ARGS                                                     \
+  const void *words, int64_t n_words, int64_t n_valid, int W, int outshift,  \
+      uint32_t inner_mask, uint64_t undomask, uint64_t rightmask,            \
+      int right_shift, int dr_shift, int dim_start, int dim_end,             \
+      int half_bits, uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3,     \
+      const void *table, void *out, void *stream
+#define KSSD_GEOMETRY                                                        \
+  Geometry g{W, outshift, inner_mask, undomask, rightmask, right_shift,      \
+             dr_shift, dim_start, dim_end, half_bits, {k0, k1, k2, k3}}
+
+extern "C" int kssd_sketch_dense(KSSD_SKETCH_ARGS) {
+  if (W < 1 || W > 32 || 2 * W - dr_shift > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
+  KSSD_GEOMETRY;
+  return launch<int32_t>(words, n_words, n_valid, g, table, out, stream);
+}
+
+extern "C" int kssd_sketch_dense_wide(KSSD_SKETCH_ARGS) {
+  if (W < 1 || W > 32) return static_cast<int>(cudaErrorInvalidValue);
+  KSSD_GEOMETRY;
+  return launch<int64_t>(words, n_words, n_valid, g, table, out, stream);
 }

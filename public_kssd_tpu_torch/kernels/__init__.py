@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point that launches its
-kernel on the stream it is given and returns ``cudaGetLastError()``. It is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into
+Each ``csrc/<source>.cu`` exposes plain C entry points, one per kernel,
+that launch on the stream they are given and return ``cudaGetLastError()``.
+A source is compiled with ``nvcc`` for Hopper (``sm_90a``) into
 ``build/public_kssd_tpu_torch/`` under the checkout, at first use, under a
-name keyed by the source's hash and the flags, and loaded with ctypes.
-Nothing is compiled when this module is imported.
+name keyed by the source's hash and the flags, and loaded with ctypes; the
+kernels of one source share its library. Nothing is compiled when this
+module is imported.
 
 A build failure (no ``nvcc``, a compile error) raises ``KernelBuildError``
 with the compiler's output; a launch that returns an error raises
@@ -62,17 +63,20 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One kernel library: lazily built and loaded, with a launch count.
+    """One kernel: its entry point in a lazily built and loaded library
+    (``csrc/<source>.cu``, ``source`` defaulting to ``name``), with a
+    launch count.
 
     ``launches`` counts the successful launches through ``launch`` and
     nothing else, so a run can show that its path went through the
     kernel."""
 
-    def __init__(self, name: str, entry: str, argtypes: list):
+    def __init__(self, name: str, entry: str, argtypes: list,
+                 source: str | None = None):
         self.name = name
         self.entry = entry
         self.argtypes = argtypes
-        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.source = os.path.join(CSRC_DIR, f"{source or name}.cu")
         self.launches = 0
         self._fn = None
 
@@ -80,7 +84,8 @@ class CudaKernel:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         with open(self.source, "rb") as f:
             h.update(f.read())
-        return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:16]}.so")
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
     def build(self) -> str:
         """Compile the source unless this exact build exists; returns the
@@ -120,16 +125,17 @@ class CudaKernel:
         self.launches += 1
 
 
-sketch_kernel = CudaKernel(
-    "sketch", "kssd_sketch_dense",
-    [_P, _I64, _I64, _I, _I, _U32, _U64, _U64, _I, _I, _I, _I, _I,
-     _U32, _U32, _U32, _U32, _P, _P, _P],
+_SKETCH_ARGS = [_P, _I64, _I64, _I, _I, _U32, _U64, _U64, _I, _I, _I, _I, _I,
+                _U32, _U32, _U32, _U32, _P, _P, _P]
+sketch_kernel = CudaKernel("sketch", "kssd_sketch_dense", _SKETCH_ARGS)
+sketch_wide_kernel = CudaKernel(
+    "sketch_wide", "kssd_sketch_dense_wide", _SKETCH_ARGS, source="sketch"
 )
 count_kernel = CudaKernel(
     "count", "kssd_count_shared",
     [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P],
 )
-ALL = (sketch_kernel, count_kernel)
+ALL = (sketch_kernel, sketch_wide_kernel, count_kernel)
 
 
 def stream_handle(device) -> int:

@@ -14,17 +14,20 @@ start p over W = 2k bases:
                                                           (iseq2comem.c:250-253)
 
 ``sketch_windows_math`` is the plain PyTorch version (int64 tensors: torch
-has no arithmetic on unsigned 32/64-bit tensors). ``sketch_windows_dense``
-is the wrapper of the hand-written kernel ``csrc/sketch.cu``: it launches
-the kernel for CUDA tensors and uses the plain version for CPU tensors.
+has no arithmetic on unsigned 32/64-bit tensors, so the canonical compare
+and the right shifts are written sign-safe for W = 32, where the window
+value reaches bit 63). ``sketch_windows_dense`` is the wrapper of the
+hand-written kernels in ``csrc/sketch.cu``: for CUDA tensors it launches
+the narrow kernel (drtuple <= 31 bits, int32 codes) or the wide one
+(32..64-bit drtuples, int64 codes), and for CPU tensors it runs the plain
+version.
 
 Streaming (``_stream_packed``): the host packs each block of symbols to 2
 bits per base (16 per uint32 word), the device computes one code per
 window and compacts survivors with ``torch.nonzero`` (ascending position =
 sequence order), and the host drops survivors whose window reaches past
-the block's real length or covers a BREAK, by position. Only narrow
-geometries (drtuple <= 31 bits, i.e. k - l <= 7) are ported; wider ones
-raise ``NotImplementedError``.
+the block's real length or covers a BREAK, by position. Narrow and wide
+geometries share this path.
 """
 
 from __future__ import annotations
@@ -36,12 +39,28 @@ from public_kssd_tpu_torch import kernels, shufspace
 from public_kssd_tpu_torch.config import SketchParams
 from public_kssd_tpu_torch.seqio import BREAK
 
-SENTINEL32 = -1  # dense int32 code of a dropped window (uint32 0xFFFFFFFF)
+# dense code of a dropped window: int32 -1 (uint32 0xFFFFFFFF) for narrow
+# geometries, int64 -1 (uint64 all-ones) for wide ones. No real drtuple is
+# all ones: below 64 bits it is too short, and at 64 bits (k = 16, l = 0) a
+# canonical k-mer that starts with T ends with A.
+SENTINEL = -1
+_SIGN = -(1 << 63)  # the int64 sign bit
 
-_WIDE_MSG = (
-    "geometries with k - l > 7 (32..60-bit sketch codes) are not ported to "
-    "public_kssd_tpu_torch yet (ROADMAP.md: wide-geometry sketch kernel)"
-)
+
+def _lsr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 values read as uint64."""
+    return x if n == 0 else (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _i64(x: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def dense_dtype(params: SketchParams) -> torch.dtype:
+    """Dtype of the dense per-window codes: int32 up to 31-bit drtuples,
+    int64 above."""
+    return torch.int64 if params.drtuple_bits > 31 else torch.int32
 
 
 def as_shuf(shuf, device: torch.device):
@@ -73,8 +92,9 @@ def sketch_windows_math(
 
     ``drtuple`` entries where ``keep`` is False are arbitrary. Order of
     windows == sequence order, matching the reference scanner's emission
-    order. Values stay below 2^57 for every narrow geometry (W <= 28), so
-    int64 holds them without sign effects.
+    order. Values are uint64 bit patterns held in int64: at W = 32 the
+    window uses all 64 bits, so the canonical minimum compares with the
+    sign bit flipped and every right shift is logical.
     """
     W = params.TL
     n = symbols.shape[0]
@@ -100,33 +120,34 @@ def sketch_windows_math(
     last_brk = torch.cummax(brk_pos, dim=0).values
     valid = last_brk[W - 1 : W - 1 + m] < pos[:m]
 
-    uni = torch.minimum(fwd, rc)
-    inner = (uni >> (2 * params.half_outctx_len)) & (params.dim_shuf_len - 1)
+    uni = torch.where((fwd ^ _SIGN) < (rc ^ _SIGN), fwd, rc)  # unsigned min
+    inner = _lsr(uni, 2 * params.half_outctx_len) & (params.dim_shuf_len - 1)
     if computed is not None:
         pf = shufspace.feistel_torch(inner, computed.seed, computed.subctx_len)
     else:
         pf = shuffled_dim[inner].to(torch.int64)
     keep = valid & (pf >= params.dim_start) & (pf < params.dim_end)
 
-    left = uni & params.undomask
+    left = uni & _i64(params.undomask)
     right = (uni & params.rightmask) << (4 * params.half_subctx_len)
-    drtuple = ((left + right) >> (4 * params.drlevel)) + (pf - params.dim_start)
+    drtuple = _lsr(left + right, 4 * params.drlevel) + (pf - params.dim_start)
     return drtuple, keep
 
 
 def sketch_windows_dense_math(
     symbols: torch.Tensor, shuffled_dim, params: SketchParams
 ) -> torch.Tensor:
-    """Plain dense form: int32 [N], position p holds the code of the
-    window starting at p, SENTINEL32 where dropped (including the last
-    W-1 positions, whose windows run past the stream)."""
+    """Plain dense form: ``dense_dtype(params)`` [N], position p holds the
+    code of the window starting at p, SENTINEL where dropped (including
+    the last W-1 positions, whose windows run past the stream)."""
     table, computed = _norm_shuf(shuffled_dim)
     drtuple, keep = sketch_windows_math(symbols, table, params, computed)
+    dtype = dense_dtype(params)
     dense = torch.full(
-        (symbols.shape[0],), SENTINEL32, dtype=torch.int32, device=symbols.device
+        (symbols.shape[0],), SENTINEL, dtype=dtype, device=symbols.device
     )
     m = drtuple.shape[0]
-    dense[:m] = torch.where(keep, drtuple, SENTINEL32).to(torch.int32)
+    dense[:m] = torch.where(keep, drtuple, SENTINEL).to(dtype)
     return dense
 
 
@@ -149,23 +170,19 @@ def sketch_windows_dense_plain(
     return sketch_windows_dense_math(sym, shuffled_dim, params)
 
 
-def _check_narrow(params: SketchParams) -> None:
-    if params.drtuple_bits > 31:
-        raise NotImplementedError(_WIDE_MSG)
-
-
 def sketch_windows_dense(
     words: torch.Tensor,  # int32 [n_words]: pack2 output, bit view
     n_valid: int,
     shuffled_dim,  # ComputedShuf or int32 [16^s] tensor on words.device
     params: SketchParams,
 ) -> torch.Tensor:
-    """int32 [n_words*16] per-window sketch codes, SENTINEL32 where the
-    window is filtered out or reaches past ``n_valid`` symbols.
+    """``dense_dtype(params)`` [n_words*16] per-window sketch codes,
+    SENTINEL where the window is filtered out or reaches past ``n_valid``
+    symbols.
 
-    CUDA tensors launch ``csrc/sketch.cu``; CPU tensors run the plain
+    CUDA tensors launch ``csrc/sketch.cu`` (the narrow kernel for int32
+    codes, the wide one for int64 codes); CPU tensors run the plain
     version on the unpacked symbols."""
-    _check_narrow(params)
     if words.device.type != "cuda":
         return sketch_windows_dense_plain(words, n_valid, shuffled_dim, params)
     table, computed = _norm_shuf(shuffled_dim)
@@ -185,9 +202,11 @@ def sketch_windows_dense(
         keys = (0, 0, 0, 0)
     else:
         keys = computed.keys
-    out = torch.empty(words.numel() * 16, dtype=torch.int32, device=words.device)
+    dtype = dense_dtype(params)
+    kernel = kernels.sketch_wide_kernel if dtype == torch.int64 else kernels.sketch_kernel
+    out = torch.empty(words.numel() * 16, dtype=dtype, device=words.device)
     with torch.cuda.device(words.device):
-        kernels.sketch_kernel.launch(
+        kernel.launch(
             words.data_ptr(), words.numel(), int(n_valid), params.TL,
             2 * params.half_outctx_len, params.dim_shuf_len - 1,
             params.undomask, params.rightmask, 4 * params.half_subctx_len,
@@ -262,9 +281,10 @@ def _stream_packed(
         brks = np.flatnonzero(chunk >= BREAK).astype(np.int64)
         words = torch.from_numpy(pack2(chunk, bucket).view(np.int32)).to(device)
         dense = sketch_windows_dense(words, chunk.size, shuf, params)
-        lpos_dev = torch.nonzero(dense != SENTINEL32).squeeze(1)
+        lpos_dev = torch.nonzero(dense != SENTINEL).squeeze(1)
         lpos = lpos_dev.cpu().numpy()
-        codes = dense[lpos_dev].cpu().numpy().astype(np.uint64)
+        # int32 codes are non-negative; int64 codes are uint64 bit patterns
+        codes = dense[lpos_dev].to(torch.int64).cpu().numpy().view(np.uint64)
         # host-side validity: window fully inside the real chunk AND
         # break-free (window at local p covers [p, p+W))
         keep = lpos <= chunk.size - W
@@ -290,7 +310,6 @@ def sketch_codes_stream(
     """Stream a symbol array through the device kernel in blocks; returns
     (codes uint64, window start positions int64), both in sequence
     order."""
-    _check_narrow(params)
     if symbols.size < params.TL:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
     return _stream_packed([symbols], shuffled_dim, params, block, device)
@@ -311,7 +330,6 @@ def sketch_codes_multi(
     back to their stream by window position. A lazy ``streams`` iterator
     lets host parsing overlap the device pass (pipeline.parsed_streams).
     """
-    _check_narrow(params)
     brk = np.array([BREAK], dtype=np.uint8)
     bounds = [0]
 

@@ -122,8 +122,10 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_and_build_dir():
-    """Both kernels build from csrc/ into build/public_kssd_tpu_torch/,
-    under a name keyed by the source and flags, for sm_90a."""
+    """Every kernel builds from csrc/ into build/public_kssd_tpu_torch/,
+    under a name keyed by the source and flags, for sm_90a; the narrow
+    and the wide sketch kernels share one library."""
+    assert kernels.sketch_wide_kernel.so_path() == kernels.sketch_kernel.so_path()
     assert kernels.BUILD_DIR == os.path.join(REPO, "build", "public_kssd_tpu_torch")
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     for k in kernels.ALL:

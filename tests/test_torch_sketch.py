@@ -3,8 +3,12 @@ JAX package's, on the CPU: same seeded numpy inputs through both, exact
 equality (everything is integer arithmetic).
 
 On the CPU the kernel wrapper ``sketch_windows_dense`` runs its plain
-PyTorch version; the CUDA kernel itself is compared with that version on
-the card by chip_smoke.py.
+PyTorch version; the CUDA kernels themselves are compared with that
+version on the card by chip_smoke.py.
+
+Wide geometries (k - l >= 8: 32..60-bit codes, int64 dense output) run
+the same functions; at k = 16 the window value fills all 64 bits, which
+the plain version must handle sign-safe in int64.
 """
 
 import numpy as np
@@ -23,6 +27,8 @@ torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 GEOMETRIES = [(10, 6, 3), (8, 5, 2), (7, 5, 2), (6, 5, 1)]
+# the wide geometries of tests/test_pallas_sketch.py (32, 36, 48, 56 bits)
+WIDE_PALLAS = [(10, 6, 2), (12, 6, 3), (15, 7, 3), (15, 7, 1)]
 
 
 def _params(k, s, l):
@@ -52,33 +58,63 @@ def _symbols(n, seed, n_breaks=40):
     return sym
 
 
+def _n_symbols(l):
+    """Enough symbols for a few hundred kept windows (1 in 16^min(l, 3))."""
+    return 1 << 20 if l >= 3 else 1 << 16
+
+
 def _jax_dense(sym, jshuf, jp):
-    """JAX dense form: uint32 code per window start, SENTINEL32 where
-    dropped (including the last W-1 positions)."""
+    """JAX dense form: one code per window start (uint32 for narrow
+    geometries, uint64 for wide ones), all ones where dropped (including
+    the last W-1 positions)."""
     table, computed = jax_sketch._norm_shuf(jshuf)
     dr, keep = jax_sketch.sketch_windows(sym, table, jp, computed)
     dr, keep = np.asarray(dr), np.asarray(keep)
-    dense = np.full(sym.size, jax_sketch.SENTINEL32, np.uint32)
-    dense[: dr.size] = np.where(keep, dr, jax_sketch.SENTINEL32)
+    if jp.drtuple_bits > 31:
+        sentinel, dtype = jax_sketch.SENTINEL, np.uint64
+    else:
+        sentinel, dtype = jax_sketch.SENTINEL32, np.uint32
+    dense = np.full(sym.size, sentinel, dtype)
+    dense[: dr.size] = np.where(keep, dr, sentinel)
     return dense
 
 
-@pytest.mark.parametrize("mode", ["feistel", "table"])
-@pytest.mark.parametrize("k,s,l", GEOMETRIES)
-def test_sketch_windows_math_matches_jax(k, s, l, mode):
+def _as_unsigned(dense: torch.Tensor) -> np.ndarray:
+    """The port's int32/int64 dense codes as the uint32/uint64 bits."""
+    a = dense.numpy()
+    return a.view(np.uint64 if a.dtype == np.int64 else np.uint32)
+
+
+def _check_math(k, s, l, mode, n):
     p, jp = _params(k, s, l)
     shuf, jshuf = _shufs(p, mode, seed=k)
-    sym = _symbols(1 << 16, seed=k)
+    sym = _symbols(n, seed=k)
     table, computed = sketch._norm_shuf(shuf)
     dr, keep = sketch.sketch_windows_math(torch.from_numpy(sym), table, p, computed)
     jtable, jcomputed = jax_sketch._norm_shuf(jshuf)
     jdr, jkeep = jax_sketch.sketch_windows(sym, jtable, jp, jcomputed)
     jdr, jkeep = np.asarray(jdr), np.asarray(jkeep)
     np.testing.assert_array_equal(keep.numpy(), jkeep)
-    np.testing.assert_array_equal(
-        dr.numpy()[jkeep].astype(np.uint64), jdr[jkeep]
-    )
-    assert jkeep.sum() > 0
+    np.testing.assert_array_equal(dr.numpy().view(np.uint64)[jkeep], jdr[jkeep])
+    return int(jkeep.sum())
+
+
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+@pytest.mark.parametrize("k,s,l", GEOMETRIES)
+def test_sketch_windows_math_matches_jax(k, s, l, mode):
+    assert _check_math(k, s, l, mode, 1 << 16) > 0
+
+
+@pytest.mark.parametrize(
+    "k,s,l,mode",
+    [(*g, "feistel") for g in WIDE_PALLAS + [(16, 7, 3), (16, 6, 1)]]
+    + [(12, 6, 3, "table"), (16, 6, 1, "table")],
+)
+def test_sketch_windows_math_wide_matches_jax(k, s, l, mode):
+    """32..64-bit codes; at k = 16 (W = 32) a signed int64 minimum or an
+    arithmetic right shift picks other canonical k-mers than the JAX
+    package's uint64 math."""
+    assert _check_math(k, s, l, mode, _n_symbols(l)) >= 200
 
 
 @pytest.mark.parametrize("k,s,l", GEOMETRIES)
@@ -95,24 +131,57 @@ def test_dense_math_matches_pallas_interpret(k, s, l):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
-@pytest.mark.parametrize("mode", ["feistel", "table"])
-@pytest.mark.parametrize("k,s,l", [(10, 6, 3), (8, 5, 2), (6, 5, 1)])
-def test_dense_wrapper_on_cpu_matches_jax(k, s, l, mode):
+@pytest.mark.parametrize("k,s,l", WIDE_PALLAS)
+def test_wide_dense_math_matches_pallas_interpret(k, s, l):
+    """The wide plain dense form (int64, -1 where dropped) equals the wide
+    Pallas kernel (two uint32 planes combined to uint64, all ones where
+    dropped) in interpret mode."""
+    p, jp = _params(k, s, l)
+    comp, jcomp = _shufs(p, "feistel", seed=0)
+    sym = _symbols(1 << 18 if l >= 3 else 1 << 16, seed=k + 50)
+    want = np.asarray(
+        pallas_sketch.sketch_windows_pallas_wide(sym, jp, jcomp.seed, interpret=True)
+    )
+    got = sketch.sketch_windows_dense_math(torch.from_numpy(sym), comp, p)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(_as_unsigned(got), want)
+    assert int((got != sketch.SENTINEL).sum()) >= 50
+
+
+def _check_dense_wrapper(k, s, l, mode):
     """The kernel wrapper on CPU tensors: packed words, windows past
     n_valid dropped, no BREAK reaching the device."""
     p, jp = _params(k, s, l)
     shuf, jshuf = _shufs(p, mode, seed=k + 1)
-    n = 1 << 14
+    n = _n_symbols(l) >> 2
     n_valid = n - 1000
     sym = np.random.default_rng(k).integers(0, 4, size=n).astype(np.uint8)
     words = torch.from_numpy(sketch.pack2(sym, n).view(np.int32))
     got = sketch.sketch_windows_dense(words, n_valid, shuf, p)
+    assert got.dtype == sketch.dense_dtype(p)
     ref = sym.copy()
     ref[n_valid:] = BREAK
-    np.testing.assert_array_equal(
-        got.numpy().view(np.uint32), _jax_dense(ref, jshuf, jp)
-    )
-    assert kernels.sketch_kernel.launches == 0  # CPU: plain version only
+    np.testing.assert_array_equal(_as_unsigned(got), _jax_dense(ref, jshuf, jp))
+    assert int((got != sketch.SENTINEL).sum()) > 0
+    for kern in kernels.ALL:  # CPU: plain version only
+        assert kern.launches == 0
+
+
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+@pytest.mark.parametrize("k,s,l", [(10, 6, 3), (8, 5, 2), (6, 5, 1)])
+def test_dense_wrapper_on_cpu_matches_jax(k, s, l, mode):
+    _check_dense_wrapper(k, s, l, mode)
+
+
+@pytest.mark.parametrize(
+    "k,s,l,mode",
+    [(12, 6, 3, "feistel"), (12, 6, 3, "table"), (15, 7, 1, "feistel"),
+     (16, 6, 1, "feistel"), (16, 6, 1, "table")],
+)
+def test_wide_dense_wrapper_on_cpu_matches_jax(k, s, l, mode):
+    """int64 codes, uint64 bits equal to the JAX package's."""
+    assert sketch.dense_dtype(_params(k, s, l)[0]) == torch.int64
+    _check_dense_wrapper(k, s, l, mode)
 
 
 def test_pack2_unpack2_roundtrip():
@@ -140,13 +209,18 @@ def test_feistel_torch_matches_numpy(s):
         (8, 5, 2, "feistel", 65536),
         (10, 6, 3, "table", 65536),
         (10, 6, 3, "feistel", 1 << 24),
+        (12, 6, 3, "feistel", 65536),
+        (12, 6, 3, "table", 65536),
+        (16, 6, 1, "feistel", 65536),
     ],
 )
 def test_sketch_codes_stream_matches_jax(k, s, l, mode, block):
-    """Chunked blocks (overlapping by W-1), breaks and the tail filter."""
+    """Chunked blocks (overlapping by W-1), breaks and the tail filter;
+    the wide cases against the JAX package's top_k compaction path."""
     p, jp = _params(k, s, l)
     shuf, jshuf = _shufs(p, mode, seed=3)
-    sym = _symbols(300_000, seed=11, n_breaks=500)
+    n = 1 << 20 if (k, l) == (12, 3) else 300_000
+    sym = _symbols(n, seed=11, n_breaks=500)
     codes, pos = sketch.sketch_codes_stream(sym, shuf, p, block=block, device=CPU)
     jcodes, jpos = jax_sketch.sketch_codes_stream(sym, jshuf, jp, block=block)
     np.testing.assert_array_equal(codes, jcodes)
@@ -175,14 +249,13 @@ def test_sketch_codes_stream_homopolymer_burst():
     assert codes.size > jax_sketch._row_cap(jp)
 
 
-@pytest.mark.parametrize("mode", ["feistel", "table"])
-def test_sketch_codes_multi_matches_jax(mode):
+def _check_multi(k, s, l, mode, size):
     """Many streams in one pass, one of them a lazy piece iterator, one
     shorter than a window, across several chunked blocks."""
-    p, jp = _params(8, 5, 2)
+    p, jp = _params(k, s, l)
     shuf, jshuf = _shufs(p, mode, seed=9)
     rng = np.random.default_rng(21)
-    streams = [_symbols(int(n), seed=int(n)) for n in rng.integers(5, 60_000, 12)]
+    streams = [_symbols(int(n), seed=int(n)) for n in rng.integers(5, size, 12)]
     streams[3] = streams[3][:7]
 
     def with_iterator():
@@ -201,11 +274,25 @@ def test_sketch_codes_multi_matches_jax(mode):
     assert sum(g.size for g in got) > 0
 
 
-def test_sketch_codes_reads_matches_jax():
-    p, jp = _params(8, 5, 2)
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+def test_sketch_codes_multi_matches_jax(mode):
+    _check_multi(8, 5, 2, mode, 60_000)
+
+
+@pytest.mark.parametrize("mode", ["feistel", "table"])
+def test_sketch_codes_multi_wide_matches_jax(mode):
+    """32-bit codes at (11,6,3): the JAX package materialises the lazy
+    stream and takes its wide top_k path; the port streams it through
+    the packed path."""
+    _check_multi(11, 6, 3, mode, 300_000)
+
+
+def _check_reads(k, s, l, n_reads):
+    p, jp = _params(k, s, l)
     comp, jcomp = _shufs(p, "feistel", seed=0)
     rng = np.random.default_rng(4)
-    reads = [_symbols(int(n), seed=int(n), n_breaks=1) for n in rng.integers(1, 400, 300)]
+    reads = [_symbols(int(n), seed=int(n), n_breaks=1)
+             for n in rng.integers(1, 400, n_reads)]
     codes, rid = sketch.sketch_codes_reads(reads, comp, p, device=CPU)
     jcodes, jrid = jax_sketch.sketch_codes_reads(reads, jcomp, jp)
     np.testing.assert_array_equal(codes, jcodes)
@@ -213,8 +300,9 @@ def test_sketch_codes_reads_matches_jax():
     assert codes.size > 0
 
 
-def test_wide_geometry_not_ported():
-    p, _ = _params(12, 6, 3)  # 36-bit codes
-    comp, _ = _shufs(p, "feistel", seed=0)
-    with pytest.raises(NotImplementedError, match="wide-geometry"):
-        sketch.sketch_codes_stream(_symbols(1000, 1), comp, p, device=CPU)
+def test_sketch_codes_reads_matches_jax():
+    _check_reads(8, 5, 2, 300)
+
+
+def test_sketch_codes_reads_wide_matches_jax():
+    _check_reads(11, 6, 3, 6000)

@@ -1,7 +1,8 @@
 """The port's main path (stage I sketch -> stage II index -> search, and
 the kssd_torch CLI) against the reference goldens (tests/golden/) and the
 JAX package, byte for byte, on the CPU (--device cpu: the plain PyTorch
-versions of the kernels)."""
+versions of the kernels). The wide-geometry section runs the same path
+at 32- and 36-bit codes split into 16 components."""
 
 import contextlib
 import gzip
@@ -17,7 +18,10 @@ from conftest import assert_co_stat_equal, assert_files_equal
 from public_kssd_tpu import cli as jax_cli
 from public_kssd_tpu import formats as jax_formats
 from public_kssd_tpu import pipeline as jax_pipeline
+from public_kssd_tpu import shufspace as jax_shufspace
+from public_kssd_tpu.config import SketchParams as JaxParams
 from public_kssd_tpu_torch import cli, formats, index, pipeline, search, shufspace
+from public_kssd_tpu_torch.config import SketchParams
 from public_kssd_tpu_torch.ops import stats as stats_ops
 
 torch.set_num_threads(1)
@@ -283,3 +287,138 @@ def test_cli_unported_dist_flags_rejected(tutorial, flag):
         cli.main(["dist", "-r", f"{tutorial}/torch/ref", "-o",
                   f"{tutorial}/torch/out_x", f"{tutorial}/torch/qry",
                   "--device", "cpu", *flag])
+
+
+# ---------------------------------------------------------------- wide
+
+WIDE_COMPS = 16  # (11,6,3) at CSZ=7 and (12,6,3) at CSZ=8: 4 excess bits
+WIDE_SINGLE_FILES = [
+    "F.shuf", "ref/cofiles.stat", "qry/cofiles.stat", "ref/mcofiles.stat",
+    "out/distance.out",
+]
+WIDE_COMPONENT_FILES = [
+    "ref/combco.{c}", "ref/combco.index.{c}", "qry/combco.{c}",
+    "qry/combco.index.{c}", "ref/mco.{c}", "ref/mco.uniq.{c}",
+    "ref/mco.csroff.{c}",
+]
+
+
+@pytest.fixture(scope="module")
+def wide_tutorial(golden7, tmp_path_factory):
+    """The dist tutorial through both CLIs at (k,s,l) = (11,6,3): 32-bit
+    codes, 16 components at CSZ=7, compat-order dedup with a 33.5M-slot
+    hash table; stage II without the dense export (16^7 rows x 8 B per
+    component)."""
+    root = str(tmp_path_factory.mktemp("wide_tutorial"))
+    qdir = _mutated_queries(golden7, f"{root}/queries")
+    for main, tag, extra in (
+        (jax_cli.main, "jax", []),
+        (cli.main, "torch", ["--device", "cpu"]),
+    ):
+        d = os.path.join(root, tag)
+        os.makedirs(d)
+        assert main(["shuffle", "-k", "11", "-s", "6", "-l", "3", "--seed", "7",
+                     "-o", f"{d}/F"]) == 0
+        assert main(["dist", "-r", f"{golden7}/genomes", "-L", f"{d}/F.shuf",
+                     "-o", f"{d}/ref", "--no-dense-index", *extra]) == 0
+        assert main(["dist", "-L", f"{d}/F.shuf", "-o", f"{d}/qry", qdir,
+                     *extra]) == 0
+        assert main(["dist", "-r", f"{d}/ref", "-o", f"{d}/out", f"{d}/qry",
+                     *extra]) == 0
+    return root
+
+
+@pytest.mark.parametrize("rel", WIDE_SINGLE_FILES)
+def test_cli_wide_matches_jax(wide_tutorial, rel):
+    assert_files_equal(f"{wide_tutorial}/jax/{rel}",
+                       f"{wide_tutorial}/torch/{rel}", rel)
+
+
+@pytest.mark.parametrize("pattern", WIDE_COMPONENT_FILES)
+def test_cli_wide_components_match_jax(wide_tutorial, pattern):
+    for c in range(WIDE_COMPS):
+        rel = pattern.format(c=c)
+        assert_files_equal(f"{wide_tutorial}/jax/{rel}",
+                           f"{wide_tutorial}/torch/{rel}", rel)
+
+
+def test_cli_wide_outputs(wide_tutorial):
+    """16 components with codes in them, and each mutated query shares
+    most of its codes with its source reference."""
+    params, perm = formats.read_shuf(f"{wide_tutorial}/torch/F.shuf")
+    assert params.drtuple_bits == 32 and params.component_num == WIDE_COMPS
+    assert shufspace.detect(params, perm) is not None
+    stat = formats.read_co_stat(f"{wide_tutorial}/torch/ref")
+    assert stat.comp_num == WIDE_COMPS and stat.all_ctx_ct > 0
+    _, comps = index.load_sparse_index(f"{wide_tutorial}/torch/ref")
+    assert len(comps) == WIDE_COMPS
+    qry = f"{wide_tutorial}/torch/qry"
+    counts = search.compute_shared_counts(qry, comps, 3, CPU)
+    np.testing.assert_array_equal(
+        counts, search.compute_shared_counts(qry, comps, 3, None)
+    )
+    for q, name in enumerate(formats.read_co_stat(qry).names):
+        if "mut" in name:
+            r = int(name.split("mut")[1][0])
+            assert counts[q].argmax() == r and counts[q, r] > counts[q].sum() // 2
+    with open(f"{wide_tutorial}/torch/out/distance.out") as f:
+        assert len(f.read().splitlines()) == 1 + 3 * 4
+
+
+def _wide_params(k, s, l, csz=7):
+    p = SketchParams.create(k=k, drlevel=l, subk=s, seed=k, component_sz=csz)
+    jp = JaxParams(id=p.id, half_ctx_len=k, half_subctx_len=s, drlevel=l,
+                   component_sz=csz)
+    return (p, shufspace.ComputedShuf(p.id, s),
+            jp, jax_shufspace.ComputedShuf(p.id, s))
+
+
+def _stage1_wide(golden7, tag, files, params, opts=None, jopts=None):
+    """run_stage1 of the port and of the JAX package on ``files`` (paths
+    relative to the golden root) into torch_<tag> and jax_<tag>."""
+    p, shuf, jp, jshuf = params
+    with _cd(golden7):
+        pipeline.run_stage1(files, f"torch_{tag}", p, shuf, opts, device=CPU)
+        jax_pipeline.run_stage1(files, f"jax_{tag}", jp, jshuf, jopts)
+    return p
+
+
+def test_stage1_wide_csz8_matches_jax(golden7):
+    """(12,6,3): 36-bit codes, 16 components at CSZ=8, 536.9M-slot
+    compat-order hash table."""
+    genomes = [f"genomes/g{i}.fasta.gz" for i in range(2)]
+    p = _stage1_wide(golden7, "w12", genomes, _wide_params(12, 6, 3, csz=8))
+    assert p.drtuple_bits == 36 and p.component_num == WIDE_COMPS
+    _cmp_combco(golden7, "jax_w12", "torch_w12", WIDE_COMPS)
+    assert formats.read_co_stat(f"{golden7}/torch_w12").all_ctx_ct > 0
+
+
+def test_stage1_wide_fastq_abundance_matches_jax(golden7):
+    """-A on deep fastq reads at (11,6,3): 16-bit counters, .a files."""
+    p = _stage1_wide(
+        golden7, "w11_koc", ["deep.fq.gz"], _wide_params(11, 6, 3),
+        pipeline.SketchOptions(abundance=True),
+        jax_pipeline.SketchOptions(abundance=True),
+    )
+    _cmp_combco(golden7, "jax_w11_koc", "torch_w11_koc", p.component_num,
+                abund=True)
+    a = np.concatenate([
+        np.fromfile(f"{golden7}/torch_w11_koc/combco.{c}.a", "<u2")
+        for c in range(p.component_num)
+    ])
+    assert a.size > 0 and a.max() > 1
+
+
+def test_stage1_wide_byread_matches_jax(golden7):
+    """--byread at (11,6,3): one sketch row per read."""
+    opts = pipeline.SketchOptions(byread=True)
+    jopts = jax_pipeline.SketchOptions(byread=True)
+    params = _wide_params(11, 6, 3)
+    for src in ("g0.fasta", "reads0.fq"):
+        tag = "w11_byread_" + src.split(".")[0]
+        p = _stage1_wide(golden7, tag, [src], params, opts, jopts)
+        for c in range(p.component_num):
+            for f in (f"combco.{c}", f"combco.index.{c}"):
+                assert_files_equal(f"{golden7}/jax_{tag}/{f}",
+                                   f"{golden7}/torch_{tag}/{f}", f)
+        assert formats.read_co_stat(f"{golden7}/torch_{tag}").all_ctx_ct > 0
