@@ -20,7 +20,11 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               sketch_codes_stream at (10,6,3) and (12,6,3) on the card
               against the same call on CPU tensors; count at
               1,000 queries x 10,000 refs x ~1,300 codes (13M postings)
-              and on full 32-bit codes; the stage II device sort
+              and on full 32-bit codes; count_koc (the abundance-weighted
+              twin) at the same shape with abundances 1..65535 and one
+              planted cell past 2^32; join (composite) on the GTDB-
+              species-shaped database of phase 7b, over the inverted
+              index and over raw DB codes; the stage II device sort
   4. sketch-heavy main path through kssd_torch's CLI: 64 reference and 16
               query genomes of 5.3 Mb (queries are references with 1-5%
               point mutations); shuffle, dist -r refs, dist queries, dist
@@ -34,9 +38,26 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               distance.out byte-equal to --cpu-count, each query matches
               its source best, and the combco files of two queries are
               byte-equal between --device cuda and --device cpu
+  7. abundance main path through the CLI:
+     7a. metagenome reads: 2 FASTQ samples of 1,000,000 x 150 bp reads,
+              90% drawn from 12 of phase 4's 64 references (shares a
+              geometric series of ratio 1.5, 0.5% substitutions), 10%
+              random; sketched with dist -A; dist -r ref --koc-out
+              byte-equal to --cpu-count; composite -q reports byte-equal
+              between --device cuda, --device cpu and the host oracle,
+              naming exactly the 12 planted references, the three
+              largest shares leading the mean-abundance column in order;
+              -b .abv files byte-equal between cuda and cpu; -i, then -s
+              0|1|2 by the host walk and by the dense search on the card
+     7b. composite at the GTDB species-group database's shape (65,702
+              references x 300 codes, synthdb) with 8 samples of
+              200,000 codes (koc): the reports over the indexed DB (CSR
+              route) and over an unindexed copy (raw route) byte-equal
+              to the host oracle
 
 Launch counts are reset before phase 4 and read after phase 5 (sketch,
-count), and reset before phase 6 and read after it (sketch_wide). The
+count), reset before phase 6 and read after it (sketch_wide), and reset
+before phase 7 and read after it (count_koc, join on each route). The
 output ends with a JSON line of per-kernel results, the card's name and
 power limit from nvidia-smi, and the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,6 +67,8 @@ and is removed at the end.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import os
@@ -65,6 +88,13 @@ N_WIDE_REFS, N_WIDE_QRYS = 16, 4
 SYNTH_REFS, SYNTH_QRYS, SYNTH_SKETCH = 10_000, 1_000, 1_300
 SKETCH_SYMBOLS = 1 << 24
 SEED = 20261016
+N_SAMPLES, N_READS, READ_LEN = 2, 1_000_000, 150
+N_PLANTED, SHARE_RATIO = 12, 1.5
+GTDB_REFS, GTDB_SKETCH = 65_702, 300  # synthdb.py: GTDB species groups
+# 8 samples, not 16: with 16 the host oracle alone took 61.5 s of the
+# phase's 66.5 s on an H100's host (one searchsorted of all 19.7M DB
+# codes per sample; PERF.md)
+GTDB_SAMPLES, GTDB_SAMPLE_CODES = 8, 200_000
 
 
 def log(msg: str) -> None:
@@ -99,17 +129,25 @@ def max_abs_err(a, b) -> int:
 
 def run_cli(*argv: str) -> float:
     """kssd_torch <argv> in this process; returns its wall seconds."""
+    return run_cli_out(*argv)[0]
+
+
+def run_cli_out(*argv: str) -> tuple[float, str]:
+    """kssd_torch <argv> in this process; returns its wall seconds and
+    what it printed on stdout."""
     import torch
 
     from public_kssd_tpu_torch import cli
 
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli.main(list(argv))
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"kssd_torch {' '.join(argv)} exited {rc}")
-    return dt
+    return dt, buf.getvalue()
 
 
 class StageLog(logging.Handler):
@@ -123,7 +161,7 @@ class StageLog(logging.Handler):
     def emit(self, record):
         msg = record.getMessage()
         head = msg.split(":", 1)[0]
-        if head in ("stage I", "search") and "[" in msg:
+        if head in ("stage I", "search", "composite") and "[" in msg:
             body = msg[msg.rindex("[") + 1:]
             self.stages[head] = {
                 k: float(v) for k, v in re.findall(r"(\w+): ([0-9.]+)s", body)
@@ -227,6 +265,94 @@ def write_stage1_dir(path: str, codes: np.ndarray, params_id: int, prefix: str) 
     ))
 
 
+def read_fasta_2bit(path: str) -> np.ndarray:
+    """A one-record ACGT fasta written by write_fasta -> uint8 0..3."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    seq = np.frombuffer(raw[raw.index(b"\n") + 1:].replace(b"\n", b""), np.uint8)
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    return lut[seq]
+
+
+def write_reads(path: str, genomes: list[np.ndarray], shares: np.ndarray,
+                rng: np.random.Generator) -> None:
+    """N_READS reads of READ_LEN bp as plain fastq: 90% drawn from
+    ``genomes`` in proportion to ``shares`` (either strand, 0.5%
+    substitutions), 10% uniformly random sequence."""
+    n_planted = int(N_READS * 0.9)
+    counts = np.floor(shares / shares.sum() * n_planted).astype(np.int64)
+    counts[0] += n_planted - counts.sum()
+    parts = []
+    for g, c in zip(genomes, counts):
+        starts = rng.integers(0, g.size - READ_LEN + 1, c)
+        parts.append(g[starts[:, None] + np.arange(READ_LEN)])
+    parts.append(rng.integers(0, 4, (N_READS - n_planted, READ_LEN), dtype=np.uint8))
+    reads = np.concatenate(parts)
+    rc = rng.random(N_READS) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    sub = rng.random(reads.shape) < 0.005
+    reads[sub] = (reads[sub] + rng.integers(1, 4, int(sub.sum()), dtype=np.uint8)) % 4
+    reads = reads[rng.permutation(N_READS)]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    head = np.frombuffer(
+        b"".join(b"@r%07d\n" % i for i in range(N_READS)), np.uint8
+    ).reshape(N_READS, -1)
+    sep = np.frombuffer(b"\n+\n", np.uint8)[None].repeat(N_READS, 0)
+    qual = np.full((N_READS, READ_LEN), ord("I"), np.uint8)
+    rec = np.hstack([head, acgt[reads], sep, qual, sep[:, :1]])
+    with open(path, "wb") as f:
+        f.write(rec.tobytes())
+
+
+def make_samples(root: str, ref_dir: str) -> list[list[int]]:
+    """N_SAMPLES fastq samples, each from its own N_PLANTED of the
+    references in ``ref_dir`` (chosen from SEED) with shares 1.5^-j.
+    Returns the planted reference indices of each sample, largest share
+    first."""
+    rng = np.random.default_rng(SEED + 7)
+    names = sorted(os.listdir(ref_dir))
+    shares = SHARE_RATIO ** -np.arange(N_PLANTED, dtype=np.float64)
+    os.makedirs(root)
+    planted = []
+    for s in range(N_SAMPLES):
+        pick = [int(i) for i in rng.choice(len(names), N_PLANTED, replace=False)]
+        genomes = [read_fasta_2bit(f"{ref_dir}/{names[i]}") for i in pick]
+        write_reads(f"{root}/sample{s}.fq", genomes, shares, rng)
+        planted.append(pick)
+    return planted
+
+
+def build_gtdb(root: str) -> tuple[str, str]:
+    """The GTDB species-group database's shape (synthdb: 65,702 groups,
+    uniform 300 codes, 28-bit codes) and GTDB_SAMPLES metagenome-shaped
+    koc samples; returns (ref dir, query dir)."""
+    from public_kssd_tpu_torch import synthdb
+
+    ref, qry = f"{root}/ref", f"{root}/qry"
+    synthdb.build_synth_ref(ref, GTDB_REFS, GTDB_SKETCH, seed=SEED + 5)
+    synthdb.build_synth_queries(qry, ref, GTDB_SAMPLES, GTDB_SAMPLE_CODES,
+                                hit_rate=0.3, seed=SEED + 6, koc=True,
+                                focus_refs=200)
+    return ref, qry
+
+
+def report_rows(report: str) -> dict[str, list[list[str]]]:
+    """Composite report -> {sample: [[ref, kmer_num, mean, pctl_mean,
+    median, max], ...]} in report order."""
+    rows: dict[str, list[list[str]]] = {}
+    for line in report.splitlines():
+        f = line.split("\t")
+        rows.setdefault(f[0], []).append(f[1:])
+    return rows
+
+
+def abv_measures(report: str) -> dict[str, float]:
+    return {a: float(b) for a, b in (
+        ln.split("\t") for ln in report.splitlines() if not ln.startswith("#")
+    )}
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_device() -> tuple[str, str]:
@@ -262,7 +388,7 @@ def phase_build() -> None:
     log(f"[build] {len(first)} sources in {time.perf_counter() - t0:.3f} s")
 
 
-def phase_kernels(device) -> tuple[dict, tuple[np.ndarray, np.ndarray]]:
+def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray]]:
     import torch
 
     from public_kssd_tpu_torch import formats, shufspace
@@ -271,7 +397,8 @@ def phase_kernels(device) -> tuple[dict, tuple[np.ndarray, np.ndarray]]:
     from public_kssd_tpu_torch.ops import count, sketch
     from public_kssd_tpu_torch.seqio import BREAK
 
-    res = {"sketch": {"err": 0}, "sketch_wide": {"err": 0}, "count": {"err": 0}}
+    res = {name: {"err": 0} for name in
+           ("sketch", "sketch_wide", "count", "count_koc", "join")}
     rng = np.random.default_rng(SEED + 1)
     n = SKETCH_SYMBOLS
     n_valid = n - 12_345
@@ -353,6 +480,45 @@ def phase_kernels(device) -> tuple[dict, tuple[np.ndarray, np.ndarray]]:
         f"({pairs / ms * 1e3:.4g} pairs/s), plain {plain_ms:.4f} ms")
     res["count"].update(ms=ms, plain_ms=plain_ms)
 
+    # the koc twin at the same shape: abundances 1..65535, and query 0
+    # repeats one code of reference 0 70,000 times at 65535, so that cell
+    # passes 2^32 (a uint32 accumulator would wrap)
+    n_rep = 70_000
+    w = rng.integers(1, 1 << 16, qry.size + n_rep).astype(np.uint32)
+    w[qry.size:] = (1 << 16) - 1
+    qry_k = np.concatenate([qry, np.full(n_rep, ref_codes[0, 0], np.uint32)])
+    qid_k = np.concatenate([count.query_ids(qidx, qry.size), np.zeros(n_rep, np.int32)])
+    qidx_k = qidx.copy()
+    qidx_k[1:] += np.uint64(n_rep)  # host oracle: the repeats join query 0
+    order = np.argsort(qid_k, kind="stable")
+    qry_k, qid_k, w = qry_k[order], qid_k[order], w[order]
+    qc_k = torch.from_numpy(qry_k.view(np.int32)).to(device)
+    qq_k = torch.from_numpy(qid_k).to(device)
+    qw_k = torch.from_numpy(w.view(np.int32)).to(device)
+    got_c, got_w = count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    want_c, want_w = count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    err = max(max_abs_err(got_c, want_c), max_abs_err(got_w, want_w))
+    res["count_koc"]["err"] = err
+    host_w = count.count_shared_weighted_np(
+        qry_k, qidx_k, w, sp.uniq_codes, sp.offsets, sp.gids, SYNTH_QRYS, SYNTH_REFS
+    )
+    host_c = count.count_shared_np(qry_k, qidx_k, sp.uniq_codes, sp.offsets,
+                                   sp.gids, SYNTH_QRYS, SYNTH_REFS)
+    if (err or not np.array_equal(got_w.cpu().numpy().view(np.uint64), host_w)
+            or not np.array_equal(got_c.cpu().numpy().view(np.uint32), host_c)
+            or int(host_w[0, 0]) <= 1 << 32):
+        raise AssertionError(f"count_koc kernel != plain/host: max_abs_err {err}, "
+                             f"cell (0, 0) {int(host_w[0, 0])}")
+    ms = cuda_ms(lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS))
+    plain_ms = cuda_ms(
+        lambda: count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    )
+    log(f"[kernels] count_koc {SYNTH_QRYS} x {SYNTH_REFS} + {n_rep} repeats: "
+        f"{int(host_c.sum())} shared codes, weighted sum {int(host_w.sum())}, "
+        f"cell (0, 0) {int(host_w[0, 0])} > 2^32; counts and sums equal to plain "
+        f"and host; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    res["count_koc"].update(ms=ms, plain_ms=plain_ms)
+
     # full 32-bit codes (CSZ=8 reaches them): unsigned order in the kernel
     sp32, _, q32 = synth_csr(300, 500, 40, SEED + 3, space=1 << 32)
     assert int(sp32.uniq_codes[-1]) >= 1 << 31
@@ -377,7 +543,59 @@ def phase_kernels(device) -> tuple[dict, tuple[np.ndarray, np.ndarray]]:
     if not np.array_equal(index_mod.sort_u64(keys, device), np.sort(keys)):
         raise AssertionError("device sort of uint64 keys != np.sort")
     log("[kernels] sign-safe device sort of 2^22 uint64 keys == np.sort")
+    phase_join_kernel(device, work, res["join"])
     return res, (ref_codes, qry)
+
+
+def phase_join_kernel(device, work: str, res: dict) -> None:
+    """join vs its plain version on the GTDB-shaped database and its 16
+    samples, over the inverted index and over the raw DB codes."""
+    import torch
+
+    from public_kssd_tpu_torch import composite, formats
+    from public_kssd_tpu_torch import index as index_mod
+    from public_kssd_tpu_torch.ops import count
+
+    t0 = time.perf_counter()
+    ref_dir, qry_dir = build_gtdb(f"{work}/gtdb")
+    codes, ridx = formats.read_combco(ref_dir, 0)
+    sp = index_mod.build_component_index(codes, ridx, GTDB_REFS)
+    qc, qi, qa = formats.read_combco(qry_dir, 0, with_abund=True)
+    sq, sqid, sab, n_q = composite._query_table(qc, qi, qa, GTDB_SAMPLES)
+    log(f"[kernels] GTDB-shaped DB: {GTDB_REFS} refs x {GTDB_SKETCH} codes "
+        f"({sp.uniq_codes.size} unique), {GTDB_SAMPLES} samples x "
+        f"{GTDB_SAMPLE_CODES} codes ({n_q} table entries) "
+        f"({time.perf_counter() - t0:.1f} s host)")
+    table = [torch.from_numpy(a[:n_q].astype(np.uint32).view(np.int32)).to(device)
+             for a in (sq, sqid, sab)]
+    shift = 16 + GTDB_REFS.bit_length()
+    index = count.DeviceIndex.from_sparse(sp, device)
+    rid = np.searchsorted(ridx[1:], np.arange(codes.size, dtype=np.uint64), "right")
+    routes = {
+        "csr": (index.uniq, index.offsets, index.gids),
+        "raw": (torch.from_numpy(codes.view(np.int32)).to(device), None,
+                torch.from_numpy(rid.astype(np.int32)).to(device)),
+    }
+    n_hits = {}
+    for route, (u, offs, gids) in routes.items():
+        args = (u, offs, gids, *table, shift)
+        got = composite.join_kernel(*args)
+        want = composite.join_torch(*args)
+        err = max_abs_err(got, want)
+        res["err"] = max(res["err"], err)
+        n_hits[route] = got.numel()
+        if err or not got.numel() or int(got.min()) < 0:
+            raise AssertionError(f"join kernel != plain on the {route} route: "
+                                 f"max_abs_err {err}, {got.numel()} keys")
+        ms = cuda_ms(lambda: composite.join_kernel(*args))
+        plain_ms = cuda_ms(lambda: composite.join_torch(*args))
+        log(f"[kernels] join, {route} route ({u.numel()} DB rows x {n_q} query "
+            f"entries): {got.numel()} hit keys equal to plain; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        if route == "csr":
+            res.update(ms=ms, plain_ms=plain_ms)
+    if n_hits["csr"] != n_hits["raw"]:
+        raise AssertionError(f"join routes disagree on the hit count: {n_hits}")
 
 
 def phase_sketch_heavy(work: str) -> None:
@@ -417,8 +635,7 @@ def phase_sketch_heavy(work: str) -> None:
         f"queries: {N_QRY_GENOMES / t_qry:.3f} genomes/s, "
         f"{N_QRY_GENOMES * mb / t_qry:.2f} Mbases/s ({t_qry:.3f} s); search "
         f"{N_QRY_GENOMES * N_REF_GENOMES / t_search:.1f} pairs/s ({t_search:.3f} s)")
-    shutil.rmtree(ref_dir)
-    shutil.rmtree(qry_dir)
+    shutil.rmtree(qry_dir)  # the references feed phase 7's reads
 
 
 def phase_search_heavy(work: str, synth) -> None:
@@ -509,6 +726,149 @@ def phase_wide(work: str) -> None:
     shutil.rmtree(root)
 
 
+def phase_reads(work: str) -> None:
+    """7a: metagenome samples from reads through dist -A, --koc-out and
+    every composite mode."""
+    from public_kssd_tpu_torch import composite, kernels
+
+    root = f"{work}/meta"
+    t0 = time.perf_counter()
+    planted = make_samples(f"{root}/samples", f"{work}/refs")
+    log(f"[abundance] wrote {N_SAMPLES} samples of {N_READS} x {READ_LEN} bp "
+        f"reads in {time.perf_counter() - t0:.1f} s; planted refs {planted}")
+    ref, koc, shuf = f"{work}/ref", f"{root}/koc", f"{work}/L3K10.shuf"
+    t_sketch = run_cli("dist", "-A", "-L", shuf, "-o", koc, f"{root}/samples")
+    t_koc = run_cli("dist", "-r", ref, "-o", f"{root}/out", "--koc-out", koc)
+    run_cli("dist", "-r", ref, "-o", f"{root}/out_cpu", "--koc-out",
+            "--cpu-count", koc)
+    size = same_bytes(f"{root}/out/distance.out", f"{root}/out_cpu/distance.out")
+    with open(f"{root}/out/distance.out") as f:
+        n_lines = sum(1 for _ in f)
+    if n_lines != 1 + 2 * N_SAMPLES * N_REF_GENOMES or not kernels.count_koc_kernel.launches:
+        raise AssertionError(f"--koc-out distance.out has {n_lines} lines, "
+                             f"{kernels.count_koc_kernel.launches} count_koc launches")
+    log(f"[abundance] dist -A {2 * N_READS} reads {t_sketch:.3f} s "
+        f"({N_SAMPLES * N_READS * READ_LEN / t_sketch / 1e6:.2f} Mbases/s); "
+        f"--koc-out search {t_koc:.3f} s; distance.out {n_lines} lines, {size} B, "
+        "byte-equal to --cpu-count")
+
+    t_cuda, rep = run_cli_out("composite", "-r", ref, "-q", koc)
+    t_cpu, rep_cpu = run_cli_out("composite", "-r", ref, "-q", koc, "--device", "cpu")
+    oracle = composite.species_abundance(ref, koc, device=None)
+    if not rep or rep != rep_cpu or rep != oracle:
+        raise AssertionError("composite report differs between --device cuda, "
+                             "--device cpu and the host oracle")
+    rows = report_rows(rep)
+    for s, pick in enumerate(planted):
+        sample = next(k for k in rows if k.endswith(f"sample{s}.fq"))
+        got = [int(re.search(r"ref(\d+)\.fasta", r[0]).group(1)) for r in rows[sample]]
+        by_mean = sorted(rows[sample], key=lambda r: -float(r[2]))
+        top = [int(re.search(r"ref(\d+)\.fasta", r[0]).group(1)) for r in by_mean[:3]]
+        if sorted(got) != sorted(pick) or top != pick[:3]:
+            raise AssertionError(f"sample {s}: reported {got}, top by mean {top}, "
+                                 f"planted {pick}")
+        log(f"[abundance] sample {s}: the {N_PLANTED} planted refs reported; mean "
+            f"abundance of the top three {[r[2] for r in by_mean[:3]]} in planted order")
+    abv = {}
+    for dev in ("cuda", "cpu"):
+        run_cli("composite", "-r", ref, "-q", koc, "-b", "-o", f"{root}/abv_{dev}",
+                "--device", dev)
+        abv[dev] = sorted(os.listdir(f"{root}/abv_{dev}"))
+    if abv["cuda"] != abv["cpu"] or len(abv["cuda"]) != N_SAMPLES:
+        raise AssertionError(f".abv files differ: {abv}")
+    abv_bytes = sum(same_bytes(f"{root}/abv_cuda/{n}", f"{root}/abv_cpu/{n}")
+                    for n in abv["cuda"])
+    run_cli("composite", "-r", ref, "-q", koc, "-b")
+    run_cli("composite", "-r", ref, "-i")
+    for mode in (0, 1, 2):
+        for q in abv["cuda"]:
+            _, host = run_cli_out("composite", "-r", ref, "-s", str(mode), q)
+            _, dense = run_cli_out("composite", "-r", ref, "-s", str(mode),
+                                   "--device-search", q)
+            check_dense_search(ref, q, mode, host, dense)
+    log(f"[abundance] composite -q: {len(rep.splitlines())} report lines equal on "
+        f"cuda ({t_cuda:.3f} s), cpu ({t_cpu:.3f} s) and the host oracle; -b "
+        f".abv files ({abv_bytes} B) equal; -i and -s 0|1|2 (host walk and "
+        "dense on the card) agree")
+    shutil.rmtree(root)
+    shutil.rmtree(f"{work}/refs")
+
+
+def check_dense_search(ref: str, query: str, mode: int, host: str,
+                       dense: str) -> None:
+    """The dense -s search on the card reports the samples the host walk
+    reports; its cosine and L1 equal the walk's within rtol 1e-5 (and the
+    absolute rounding of the walk's float32 sums). Its L2
+    is over full vectors where the walk sums only dimensions both samples
+    have (composite.abv_search_device), so it is held to a float64 numpy
+    evaluation of that definition instead."""
+    from public_kssd_tpu_torch import composite, formats
+
+    h, d = abv_measures(host), abv_measures(dense)
+    if h.keys() != d.keys() or not h:
+        raise AssertionError(f"-s {mode}: samples {sorted(h)} != {sorted(d)}")
+    if mode == 2:
+        base = f"{ref}/{composite.BINVEC_DIRNAME}"
+        with open(base + ".name") as f:
+            names = [ln.rstrip("\n") for ln in f if ln.strip()]
+        vec = {}
+        for n in names:
+            a = formats.read_abv(f"{base}/{n}")
+            v = np.zeros(N_REF_GENOMES)
+            v[a["ref_idx"]] = a["pct"]
+            vec[n] = v
+        want = {n: float(np.sqrt(((vec[n] - vec[query]) ** 2).sum())) for n in d}
+        if not all(np.isclose(d[n], want[n], rtol=1e-5, atol=1e-5) for n in d):
+            raise AssertionError(f"-s 2 dense {d} != numpy {want}")
+        return
+    # the walk's L1 ends with + (200 - xs - ys), where xs and ys are
+    # float32 sums of percentages near 100: their rounding (~1e-5 an
+    # addition) stays when the shared terms cancel, e.g. 3.1e-05 for a
+    # sample against itself, which the dense search gives as 0
+    atol = 1e-4 if mode == 1 else 1e-5
+    bad = [n for n in h if not np.isclose(d[n], h[n], rtol=1e-5, atol=atol)]
+    if bad:
+        raise AssertionError(f"-s {mode}: dense {d} != host walk {h}")
+
+
+def phase_gtdb(work: str) -> dict[str, int]:
+    """7b: composite at the GTDB species-group database's shape over the
+    inverted index and over raw DB codes, against the host oracle."""
+    from public_kssd_tpu_torch import composite, kernels, utils
+
+    root = f"{work}/gtdb"
+    ref, qry, idx = f"{root}/ref", f"{root}/qry", f"{root}/ref_idx"
+    shutil.copytree(ref, idx)
+    t_index = run_cli("dist", "-o", idx, idx, "--no-dense-index")
+    t0 = time.perf_counter()
+    oracle = composite.species_abundance(ref, qry, device=None)
+    t_oracle = time.perf_counter() - t0
+    stages = StageLog()
+    utils.log.addHandler(stages)
+    launches = {}
+    walls = {}
+    try:
+        for route, d in (("csr", idx), ("raw", ref)):
+            before = kernels.join_kernel.launches
+            walls[route], rep = run_cli_out("composite", "-r", d, "-q", qry)
+            launches[route] = kernels.join_kernel.launches - before
+            if rep != oracle or not rep:
+                raise AssertionError(f"GTDB-shaped composite report on the {route} "
+                                     "route differs from the host oracle")
+            log(f"[gtdb] {route} route: report ({len(rep.splitlines())} lines) "
+                f"byte-equal to the host oracle; CLI wall {walls[route]:.3f} s, "
+                f"stages {stages.stages['composite']}; join launches "
+                f"{launches[route]}")
+    finally:
+        utils.log.removeHandler(stages)
+    log(f"[gtdb] {GTDB_REFS} refs x {GTDB_SKETCH} codes, {GTDB_SAMPLES} samples x "
+        f"{GTDB_SAMPLE_CODES} codes: stage II index {t_index:.3f} s; host oracle "
+        f"{t_oracle:.3f} s; CLI composite csr {walls['csr']:.3f} s, raw "
+        f"{walls['raw']:.3f} s")
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
@@ -524,7 +884,7 @@ def main() -> int:
     os.makedirs(work)
     t_all = time.perf_counter()
     phase_build()
-    res, synth = phase_kernels(device)
+    res, synth = phase_kernels(device, work)
     for k in kernels.ALL:  # count only what each main path launches
         k.launches = 0
     phase_sketch_heavy(work)
@@ -536,7 +896,22 @@ def main() -> int:
     wide = {k.name: k.launches for k in kernels.ALL}
     log(f"[wide] launches on this path: {wide}")
     launches["sketch_wide"] = wide["sketch_wide"]
-    for name, n in list(launches.items()) + [("count (wide path)", wide["count"])]:
+    for k in kernels.ALL:
+        k.launches = 0
+    t7 = time.perf_counter()
+    phase_reads(work)
+    join_routes = phase_gtdb(work)
+    abundance = {k.name: k.launches for k in kernels.ALL}
+    log(f"[abundance] phase 7 in {time.perf_counter() - t7:.1f} s; launches on "
+        f"this path: {abundance}, join by route {join_routes}")
+    launches["count_koc"] = abundance["count_koc"]
+    launches["join"] = abundance["join"]
+    for name, n in list(launches.items()) + [
+        ("count (wide path)", wide["count"]),
+        ("sketch (abundance path)", abundance["sketch"]),
+        ("join (csr route)", join_routes["csr"]),
+        ("join (raw route)", join_routes["raw"]),
+    ]:
         if n == 0:
             raise AssertionError(f"{name} kernel was not launched by its main path")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
@@ -548,6 +923,8 @@ def main() -> int:
         "sketch": "public_kssd_tpu/ops/pallas_sketch.py:437",
         "sketch_wide": "public_kssd_tpu/ops/pallas_sketch.py:492",
         "count": "public_kssd_tpu/ops/count.py:300",
+        "count_koc": "public_kssd_tpu/ops/count.py:563",
+        "join": "public_kssd_tpu/composite.py:152",
     }
     print(json.dumps({"kernels": [
         {

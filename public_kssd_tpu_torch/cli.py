@@ -1,9 +1,10 @@
 """Command-line interface of the PyTorch port: the reference kssd's
-``shuffle`` and ``dist`` subcommands, with the arguments of
+``shuffle``, ``dist`` and ``composite`` subcommands, with the arguments of
 ``public_kssd_tpu.cli`` plus ``--device``.
 
     kssd_torch shuffle   -k -s -l -o                 (command_shuffle.c:33-41)
     kssd_torch dist      sketch / index / search     (command_dist_wrapper.c:41-65)
+    kssd_torch composite -q [-b] / -i / -s / -d      (command_composite.c)
 
 Dispatch logic mirrors dist_dispatch (command_dist.c:53-192):
 
@@ -12,12 +13,13 @@ Dispatch logic mirrors dist_dispatch (command_dist.c:53-192):
   dist -o out <raw seqs>              sketch queries into out
   dist -o out <co dir>                build index (stage II) into out
 
-``--device cuda`` (the default) runs the window pass and the counting in
-the hand-written kernels (csrc/) and raises when no card is visible;
-``--device cpu`` runs their plain PyTorch versions. ``set``, ``reverse``,
-``composite`` and ``convert``, combining query sketch dirs, ``--mesh``,
-``--shard``, ``--merge-shards``, ``--koc-out`` and ``--profile`` are not
-ported yet (ROADMAP.md) and exit with an error.
+``--device cuda`` (the default) runs the window pass, the counting (with
+``--koc-out`` also the abundance-weighted counting) and the composite
+join in the hand-written kernels (csrc/) and raises when no card is
+visible; ``--device cpu`` runs their plain PyTorch versions. ``set``,
+``reverse`` and ``convert``, combining query sketch dirs, ``--mesh``,
+``--shard``, ``--merge-shards`` and ``--profile`` are not ported yet
+(ROADMAP.md) and exit with an error.
 """
 
 from __future__ import annotations
@@ -26,7 +28,11 @@ import argparse
 import os
 import sys
 
-_NOT_PORTED = ("set", "reverse", "composite", "convert")
+_NOT_PORTED = ("set", "reverse", "convert")
+_DEVICE_HELP = (
+    "torch device of the kernels: cuda runs the hand-written kernels, "
+    "cpu their plain PyTorch versions [cuda]"
+)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -86,17 +92,39 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--cpu-count", action="store_true",
                    help="count on the host (numpy oracle), not on --device")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="torch device of the sketch and count kernels: "
-                   "cuda runs the hand-written kernels, cpu their plain "
-                   "PyTorch versions [cuda]")
+                   help=_DEVICE_HELP)
+    p.add_argument("--koc-out", action="store_true",
+                   help="append abundance-weighted (koc) rows when the "
+                   "query dir has .a files (sketched with -A)")
     # accepted so that kssd_tpu command lines parse, then rejected: not
     # ported yet (ROADMAP.md)
-    p.add_argument("--koc-out", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--shard", default="", help=argparse.SUPPRESS)
     p.add_argument("--merge-shards", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--mesh", default="", help=argparse.SUPPRESS)
     p.add_argument("--profile", default="", help=argparse.SUPPRESS)
     p.add_argument("remaining", nargs="*", help="query files/dirs")
+
+    p = sub.add_parser("composite", help="metagenomic composition analysis")
+    p.add_argument("-r", dest="refdir", default="", help="reference sketch dir")
+    p.add_argument("-q", dest="qrydir", default="", help="query koc sketch dir")
+    p.add_argument("-o", dest="outdir", default="./", help="output dir")
+    p.add_argument("-p", type=int, default=1, help="threads (accepted, unused)")
+    p.add_argument("-b", dest="binvec", action="store_true", help="write .abv vectors")
+    p.add_argument("-i", dest="idxbv", action="store_true", help="index .abv vectors")
+    p.add_argument("-s", dest="searchbv", type=int, default=-1,
+                   help="abv search: 0 cosine / 1 L1 / 2 L2")
+    p.add_argument("-d", dest="readabv", action="store_true", help="dump .abv file")
+    p.add_argument("--device-search", action="store_true",
+                   help="force the dense -s search on --device (auto-selected "
+                   "for large matrices; see composite.ABV_DENSE_THRESHOLD)")
+    p.add_argument("--host-search", action="store_true",
+                   help="force the reference-parity sparse host walk for "
+                   "-s even at scale")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help=_DEVICE_HELP)
+    # accepted so that kssd_tpu command lines parse, then rejected
+    p.add_argument("--mesh", default="", help=argparse.SUPPRESS)
+    p.add_argument("remaining", nargs="*")
 
     for name in _NOT_PORTED:
         sub.add_parser(name, help="not yet ported")
@@ -112,6 +140,11 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "shuffle":
         return _cmd_shuffle(args)
+    if args.command == "composite":
+        from public_kssd_tpu_torch import composite
+
+        _reject_unported("composite", args, ("--mesh",))
+        return composite.cmd_composite(args)
     return _cmd_dist(args)
 
 
@@ -178,17 +211,11 @@ def _load_params(args):
     return params, shufspace.ComputedShuf(params.id, params.half_subctx_len)
 
 
-def _reject_unported(args) -> None:
-    for flag, given in (
-        ("--koc-out", args.koc_out),
-        ("--shard", args.shard),
-        ("--merge-shards", args.merge_shards),
-        ("--mesh", args.mesh),
-        ("--profile", args.profile),
-    ):
-        if given:
+def _reject_unported(command: str, args, flags: tuple[str, ...]) -> None:
+    for flag in flags:
+        if getattr(args, flag.lstrip("-").replace("-", "_")):
             sys.exit(
-                f"kssd_torch dist: {flag} is not yet ported to "
+                f"kssd_torch {command}: {flag} is not yet ported to "
                 "public_kssd_tpu_torch (ROADMAP.md); use kssd_tpu"
             )
 
@@ -199,7 +226,9 @@ def _cmd_dist(args) -> int:
     )
     from public_kssd_tpu_torch.ops import stats as stats_ops
 
-    _reject_unported(args)
+    _reject_unported(
+        "dist", args, ("--shard", "--merge-shards", "--mesh", "--profile")
+    )
     device = resolve_device(args.device)
     index_device = device if args.device_index else None
     opts = pipeline.SketchOptions(
@@ -264,6 +293,7 @@ def _cmd_dist(args) -> int:
                 keep_shared_kmer=args.keepskf,
                 shared_kmer_path=args.skf or None,
                 mem_gb=args.mmry,
+                koc=args.koc_out,
             )
             return 0
         if qry_is_co:

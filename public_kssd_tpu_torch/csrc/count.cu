@@ -1,5 +1,6 @@
 // Shared-k-mer counting: query sketch codes x CSR inverted index ->
-// count matrix [n_qry, n_ref] (the search hot loop).
+// count matrix [n_qry, n_ref] (the search hot loop), and its
+// abundance-weighted twin for --koc-out.
 //
 // Replaces public_kssd_tpu/ops/count.py:_count_rowgather together with
 // its pair-capacity retry loop (_run_counting): that design expands every
@@ -13,6 +14,12 @@
 // per posting into counts[qid * n_ref + gid]. Indexing is 64-bit, so the
 // matrix size is bounded only by device memory.
 //
+// The weighted instance (entry kssd_count_koc) replaces
+// public_kssd_tpu/ops/count.py:_count_weighted_rowgather and
+// count_shared_weighted_device: in the same single walk each posting also
+// adds the query code's abundance (uint32) into a uint64 matrix with a
+// 64-bit atomicAdd, so a koc search walks the index once for both tables.
+//
 // What bounds it on an H100: dependent global loads (log2(nnz) probes per
 // code, mostly L2 hits for the upper levels of the search) and the
 // atomics. A skew in postings-list length makes threads uneven (a later
@@ -25,13 +32,16 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 count_shared_kernel(const uint32_t* __restrict__ qry_codes,
-                    const int32_t* __restrict__ qry_qid, int64_t n_codes,
+                    const int32_t* __restrict__ qry_qid,
+                    const uint32_t* __restrict__ qry_weights, int64_t n_codes,
                     const uint32_t* __restrict__ uniq, int64_t nnz,
                     const int64_t* __restrict__ offsets,
                     const uint32_t* __restrict__ gids, int64_t n_ref,
-                    uint32_t* __restrict__ counts) {
+                    uint32_t* __restrict__ counts,
+                    unsigned long long* __restrict__ weighted) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n_codes; i += stride) {
@@ -48,12 +58,26 @@ count_shared_kernel(const uint32_t* __restrict__ qry_codes,
       }
     }
     if (lo >= nnz || uniq[lo] != code) continue;
-    uint32_t* row = counts + static_cast<int64_t>(q) * n_ref;
+    const int64_t row = static_cast<int64_t>(q) * n_ref;
     const int64_t end = offsets[lo + 1];
-    for (int64_t j = offsets[lo]; j < end; ++j) {
-      atomicAdd(row + gids[j], 1u);
+    if (kWeighted) {
+      const unsigned long long w = qry_weights[i];
+      for (int64_t j = offsets[lo]; j < end; ++j) {
+        atomicAdd(counts + row + gids[j], 1u);
+        atomicAdd(weighted + row + gids[j], w);
+      }
+    } else {
+      for (int64_t j = offsets[lo]; j < end; ++j) {
+        atomicAdd(counts + row + gids[j], 1u);
+      }
     }
   }
+}
+
+unsigned grid_for(int64_t n_codes) {
+  int64_t blocks = (n_codes + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond one wave
+  return static_cast<unsigned>(blocks);
 }
 
 }  // namespace
@@ -64,15 +88,36 @@ extern "C" int kssd_count_shared(const void* qry_codes, const void* qry_qid,
                                  const void* gids, int64_t n_ref,
                                  void* counts, void* stream) {
   if (n_codes <= 0 || nnz <= 0) return 0;
-  int64_t blocks = (n_codes + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond one wave
-  count_shared_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  count_shared_kernel<false><<<grid_for(n_codes), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(qry_codes),
-      static_cast<const int32_t*>(qry_qid), n_codes,
+      static_cast<const int32_t*>(qry_qid), nullptr, n_codes,
       static_cast<const uint32_t*>(uniq), nnz,
       static_cast<const int64_t*>(offsets),
       static_cast<const uint32_t*>(gids), n_ref,
-      static_cast<uint32_t*>(counts));
+      static_cast<uint32_t*>(counts), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// counts: uint32 [n_qry, n_ref]; weighted: uint64 [n_qry, n_ref], int64
+// on the torch side (the weights are the .a files' uint16 abundances, so
+// the sums stay far below 2^63). Both must be zeroed by the caller.
+extern "C" int kssd_count_koc(const void* qry_codes, const void* qry_qid,
+                              const void* qry_weights, int64_t n_codes,
+                              const void* uniq, int64_t nnz,
+                              const void* offsets, const void* gids,
+                              int64_t n_ref, void* counts, void* weighted,
+                              void* stream) {
+  if (n_codes <= 0 || nnz <= 0) return 0;
+  count_shared_kernel<true><<<grid_for(n_codes), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(qry_codes),
+      static_cast<const int32_t*>(qry_qid),
+      static_cast<const uint32_t*>(qry_weights), n_codes,
+      static_cast<const uint32_t*>(uniq), nnz,
+      static_cast<const int64_t*>(offsets),
+      static_cast<const uint32_t*>(gids), n_ref,
+      static_cast<uint32_t*>(counts),
+      static_cast<unsigned long long*>(weighted));
   return static_cast<int>(cudaGetLastError());
 }

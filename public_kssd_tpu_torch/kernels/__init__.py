@@ -135,7 +135,16 @@ count_kernel = CudaKernel(
     "count", "kssd_count_shared",
     [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P],
 )
-ALL = (sketch_kernel, sketch_wide_kernel, count_kernel)
+count_koc_kernel = CudaKernel(
+    "count_koc", "kssd_count_koc",
+    [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P, _P], source="count",
+)
+join_kernel = CudaKernel(
+    "join", "kssd_join",
+    [_I, _P, _I64, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
+)
+ALL = (sketch_kernel, sketch_wide_kernel, count_kernel, count_koc_kernel,
+       join_kernel)
 
 
 def stream_handle(device) -> int:

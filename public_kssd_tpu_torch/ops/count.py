@@ -14,9 +14,17 @@ device:
     on int64, ``repeat_interleave`` expansion, ``bincount``).
   * ``count_shared_np`` — the host numpy oracle (reference semantics).
 
+The koc (abundance-weighted) twins — ``count_shared_koc_kernel``
+(``csrc/count.cu``, entry ``kssd_count_koc``), ``count_shared_koc_torch``
+and ``count_shared_weighted_np`` — add each matched pair's query-code
+abundance into a uint64 matrix; the kernel and the plain version return
+the plain counts from the same single pass.
+
 Codes are unsigned 32-bit values. Tensors carry them as int32 bit views
 (the kernel reads them as uint32) and the plain version widens them to
-int64 with ``& 0xFFFFFFFF``, so codes >= 2^31 keep their order.
+int64 with ``& 0xFFFFFFFF``, so codes >= 2^31 keep their order. Weighted
+sums are int64 tensors (torch has no uint64 arithmetic) and uint64 on the
+host.
 """
 
 from __future__ import annotations
@@ -81,6 +89,39 @@ class DeviceIndex:
         return dev
 
 
+def _match_pairs(
+    qry_codes: torch.Tensor, qry_qid: torch.Tensor, index: DeviceIndex
+) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """Every matched (query code x posting) pair as (its count-matrix cell
+    qid * n_ref + gid, the position of its query code), both int64; None
+    when nothing matches."""
+    dev = qry_codes.device
+    uniq = _widen(index.uniq)
+    codes = _widen(qry_codes)
+    nnz = uniq.numel()
+    if nnz == 0 or codes.numel() == 0:
+        return None
+    row = torch.searchsorted(uniq, codes)
+    row_c = row.clamp(max=nnz - 1)
+    found = (row < nnz) & (uniq[row_c] == codes)
+    src = torch.nonzero(found).flatten()
+    row_f = row_c[src]
+    starts = index.offsets[row_f]
+    lens = index.offsets[row_f + 1] - starts
+    total = int(lens.sum())
+    if total == 0:
+        return None
+    # ragged expansion: posting j of found code i sits at starts[i] + j
+    seg_start = torch.cumsum(lens, 0) - lens
+    within = torch.arange(total, dtype=torch.int64, device=dev) - (
+        torch.repeat_interleave(seg_start, lens)
+    )
+    pos = torch.repeat_interleave(starts, lens) + within
+    rid = index.gids[pos].to(torch.int64)
+    src = torch.repeat_interleave(src, lens)
+    return qry_qid[src].to(torch.int64) * index.n_ref + rid, src
+
+
 def count_shared_torch(
     qry_codes: torch.Tensor,  # int32 [L] bit view of uint32 query codes
     qry_qid: torch.Tensor,  # int32 [L] query id per code
@@ -89,33 +130,49 @@ def count_shared_torch(
 ) -> torch.Tensor:
     """Plain version: int32 [n_qry, n_ref] shared-code counts on the
     device of the inputs."""
+    pairs = _match_pairs(qry_codes, qry_qid, index)
+    if pairs is None:
+        return torch.zeros(
+            (n_qry, index.n_ref), dtype=torch.int32, device=qry_codes.device
+        )
+    counts = torch.bincount(pairs[0], minlength=n_qry * index.n_ref)
+    return counts.to(torch.int32).reshape(n_qry, index.n_ref)
+
+
+def count_shared_koc_torch(
+    qry_codes: torch.Tensor,  # int32 [L] bit view of uint32 query codes
+    qry_qid: torch.Tensor,  # int32 [L] query id per code
+    qry_weights: torch.Tensor,  # int32 [L] bit view of uint32 abundances
+    index: DeviceIndex,
+    n_qry: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the koc pass: (int32 shared-code counts, int64
+    abundance-weighted sums), both [n_qry, n_ref], from one expansion."""
+    shape = (n_qry, index.n_ref)
     dev = qry_codes.device
-    n_ref = index.n_ref
-    uniq = _widen(index.uniq)
-    codes = _widen(qry_codes)
-    nnz = uniq.numel()
-    if nnz == 0 or codes.numel() == 0:
-        return torch.zeros((n_qry, n_ref), dtype=torch.int32, device=dev)
-    row = torch.searchsorted(uniq, codes)
-    row_c = row.clamp(max=nnz - 1)
-    found = (row < nnz) & (uniq[row_c] == codes)
-    row_f = row_c[found]
-    starts = index.offsets[row_f]
-    lens = index.offsets[row_f + 1] - starts
-    qids = qry_qid[found].to(torch.int64)
-    total = int(lens.sum())
-    if total == 0:
-        return torch.zeros((n_qry, n_ref), dtype=torch.int32, device=dev)
-    # ragged expansion: posting j of found code i sits at starts[i] + j
-    seg_start = torch.cumsum(lens, 0) - lens
-    within = torch.arange(total, dtype=torch.int64, device=dev) - (
-        torch.repeat_interleave(seg_start, lens)
-    )
-    pos = torch.repeat_interleave(starts, lens) + within
-    rid = index.gids[pos].to(torch.int64)
-    flat = torch.repeat_interleave(qids, lens) * n_ref + rid
-    counts = torch.bincount(flat, minlength=n_qry * n_ref)
-    return counts.to(torch.int32).reshape(n_qry, n_ref)
+    pairs = _match_pairs(qry_codes, qry_qid, index)
+    if pairs is None:
+        return (torch.zeros(shape, dtype=torch.int32, device=dev),
+                torch.zeros(shape, dtype=torch.int64, device=dev))
+    flat, src = pairs
+    counts = torch.bincount(flat, minlength=n_qry * index.n_ref)
+    weighted = torch.zeros(n_qry * index.n_ref, dtype=torch.int64, device=dev)
+    weighted.index_add_(0, flat, _widen(qry_weights)[src])
+    return counts.to(torch.int32).reshape(shape), weighted.reshape(shape)
+
+
+def _check_query(index: DeviceIndex, **tensors: torch.Tensor) -> None:
+    """The kernels' argument contract: 1-D int32 tensors of one length
+    on the index's device."""
+    lengths = set()
+    for name, t in tensors.items():
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device != index.device:
+            raise TypeError(
+                f"{name} must be a 1-D int32 tensor on {index.device}"
+            )
+        lengths.add(t.numel())
+    if len(lengths) > 1:
+        raise ValueError(f"{', '.join(tensors)} differ in length")
 
 
 def count_shared_kernel(
@@ -131,13 +188,7 @@ def count_shared_kernel(
     n_qry * n_ref is bounded only by device memory."""
     if qry_codes.device.type != "cuda":
         return count_shared_torch(qry_codes, qry_qid, index, n_qry)
-    for name, t in (("qry_codes", qry_codes), ("qry_qid", qry_qid)):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device != index.device:
-            raise TypeError(
-                f"{name} must be a 1-D int32 tensor on {index.device}"
-            )
-    if qry_qid.numel() != qry_codes.numel():
-        raise ValueError("qry_codes and qry_qid differ in length")
+    _check_query(index, qry_codes=qry_codes, qry_qid=qry_qid)
     qry_codes = qry_codes.contiguous()
     qry_qid = qry_qid.contiguous()
     counts = torch.zeros(
@@ -151,6 +202,39 @@ def count_shared_kernel(
             counts.data_ptr(), kernels.stream_handle(qry_codes.device),
         )
     return counts
+
+
+def count_shared_koc_kernel(
+    qry_codes: torch.Tensor,
+    qry_qid: torch.Tensor,
+    qry_weights: torch.Tensor,
+    index: DeviceIndex,
+    n_qry: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int32 counts, int64 abundance-weighted sums) [n_qry, n_ref] in one
+    walk of the index: ``csrc/count.cu`` (``kssd_count_koc``) for CUDA
+    tensors, ``count_shared_koc_torch`` for CPU tensors."""
+    if qry_codes.device.type != "cuda":
+        return count_shared_koc_torch(
+            qry_codes, qry_qid, qry_weights, index, n_qry
+        )
+    _check_query(index, qry_codes=qry_codes, qry_qid=qry_qid,
+                 qry_weights=qry_weights)
+    qry_codes = qry_codes.contiguous()
+    qry_qid = qry_qid.contiguous()
+    qry_weights = qry_weights.contiguous()
+    shape = (n_qry, index.n_ref)
+    counts = torch.zeros(shape, dtype=torch.int32, device=qry_codes.device)
+    weighted = torch.zeros(shape, dtype=torch.int64, device=qry_codes.device)
+    with torch.cuda.device(qry_codes.device):
+        kernels.count_koc_kernel.launch(
+            qry_codes.data_ptr(), qry_qid.data_ptr(), qry_weights.data_ptr(),
+            qry_codes.numel(), index.uniq.data_ptr(), index.uniq.numel(),
+            index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
+            counts.data_ptr(), weighted.data_ptr(),
+            kernels.stream_handle(qry_codes.device),
+        )
+    return counts, weighted
 
 
 def query_ids(qry_index: np.ndarray, n_codes: int) -> np.ndarray:
@@ -188,6 +272,50 @@ def count_shared(
     return counts.cpu().numpy().view(np.uint32)
 
 
+def count_shared_koc(
+    qry_codes: np.ndarray,
+    qry_index: np.ndarray,
+    qry_weights: np.ndarray,
+    sparse_index,
+    n_qry: int,
+    device: torch.device | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Shared-code counts and abundance-weighted counts (each matched
+    pair adds its query code's ``qry_weights`` entry, uint32) of all
+    queries against one component -> (uint32, uint64) [n_qry, n_ref].
+    ``device=None`` runs the host oracle; a device runs
+    ``count_shared_koc_kernel`` on it: one walk for both matrices."""
+    if device is None or qry_codes.size == 0:
+        args = (qry_codes, qry_index, sparse_index.uniq_codes,
+                sparse_index.offsets, sparse_index.gids, n_qry,
+                sparse_index.n_genomes)
+        return count_shared_np(*args), count_shared_weighted_np(
+            *args[:2], qry_weights, *args[2:]
+        )
+    index = DeviceIndex.from_sparse(sparse_index, device)
+    qc = _u32_view(qry_codes).to(index.device)
+    qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
+    qw = _u32_view(qry_weights).to(index.device)
+    counts, weighted = count_shared_koc_kernel(qc, qq, qw, index, n_qry)
+    return (counts.cpu().numpy().view(np.uint32),
+            weighted.cpu().numpy().view(np.uint64))
+
+
+def count_shared_weighted(
+    qry_codes: np.ndarray,
+    qry_index: np.ndarray,
+    qry_weights: np.ndarray,
+    sparse_index,
+    n_qry: int,
+    device: torch.device | None = None,
+) -> np.ndarray:
+    """Abundance-weighted shared counts of all queries vs one component
+    -> uint64 [n_qry, n_ref] (``count_shared_koc``'s second matrix)."""
+    return count_shared_koc(
+        qry_codes, qry_index, qry_weights, sparse_index, n_qry, device
+    )[1]
+
+
 def count_shared_np(
     qry_codes: np.ndarray,
     qry_index: np.ndarray,
@@ -214,6 +342,36 @@ def count_shared_np(
     expanded_gids = gids[_ragged_indices_np(starts, lens)]
     expanded_qids = np.repeat(qids, lens)
     np.add.at(counts, (expanded_qids, expanded_gids.astype(np.int64)), 1)
+    return counts
+
+
+def count_shared_weighted_np(
+    qry_codes: np.ndarray,
+    qry_index: np.ndarray,
+    qry_weights: np.ndarray,
+    uniq_codes: np.ndarray,
+    offsets: np.ndarray,
+    gids: np.ndarray,
+    n_qry: int,
+    n_ref: int,
+) -> np.ndarray:
+    """Host (numpy) abundance-weighted counting -> uint64 [n_qry, n_ref]:
+    the oracle (public_kssd_tpu's count_shared_weighted, use_device=False)."""
+    counts = np.zeros((n_qry, n_ref), dtype=np.uint64)
+    qid_of = np.searchsorted(
+        qry_index[1:], np.arange(qry_codes.size, dtype=np.uint64), "right"
+    )
+    row = np.searchsorted(uniq_codes, qry_codes)
+    row_c = np.clip(row, 0, max(uniq_codes.size - 1, 0))
+    found = (row < uniq_codes.size) & (uniq_codes[row_c] == qry_codes)
+    starts = offsets[row_c][found].astype(np.int64)
+    lens = (offsets[row_c + 1] - offsets[row_c])[found].astype(np.int64)
+    if lens.sum() == 0:
+        return counts
+    exp_gids = gids[_ragged_indices_np(starts, lens)].astype(np.int64)
+    exp_qids = np.repeat(qid_of[found], lens)
+    exp_w = np.repeat(qry_weights[found].astype(np.uint64), lens)
+    np.add.at(counts, (exp_qids, exp_gids), exp_w)
     return counts
 
 

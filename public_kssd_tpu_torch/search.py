@@ -3,12 +3,14 @@
 Orchestrates the counting kernel over components and the statistics
 printer; mirrors mco_cbdco_nobin_dist (command_dist.c:670-808) +
 dist_print_nobin (:1161-1250) including the sharedk_ct.dat artifact
-(--keepskf / -f resume, command_dist.c:735-738, 1164, 1249) and the -m
-memory-governed query batching (:707-768). Counting runs on a torch
-device (csrc/count.cu on a CUDA card) or, with ``device=None``, in the
-host oracle. The koc (abundance-weighted) appendix and the sharded mesh
-search are not ported yet (ROADMAP.md: koc-weighted counting,
-parallel/ on torch.distributed).
+(--keepskf / -f resume, command_dist.c:735-738, 1164, 1249), the -m
+memory-governed query batching (:707-768), and the opt-in koc
+(abundance-weighted) output appendix (koc_dist_print_nobin,
+command_dist.c:1080-1160 — dead code in the reference, see
+ops/stats.format_koc_pair_line). Counting runs on a torch device
+(csrc/count.cu on a CUDA card) or, with ``device=None``, in the host
+oracle. The sharded mesh search is not ported yet (ROADMAP.md: parallel/
+on torch.distributed).
 """
 
 from __future__ import annotations
@@ -25,10 +27,6 @@ from public_kssd_tpu_torch.ops import stats as stats_ops
 PAGE_SZ = 4096  # reference batches in sysconf(_SC_PAGESIZE) units (:747)
 
 
-_KOC_MSG = (
-    "abundance-weighted (koc) counting is not ported to "
-    "public_kssd_tpu_torch yet (ROADMAP.md: koc-weighted counting)"
-)
 _MESH_MSG = (
     "sharded search is not ported to public_kssd_tpu_torch yet "
     "(ROADMAP.md: parallel/ on torch.distributed)"
@@ -63,11 +61,10 @@ def compute_shared_counts(
     ``device`` runs the counting there (``None``: the host oracle).
     ``counts_out`` (e.g. a np.memmap over sharedk_ct.dat) bounds host RAM
     the way the reference's mmap does; ``batch`` bounds the query rows
-    materialised per device call. ``koc_out`` (abundance-weighted
-    counts) is not ported yet and raises.
+    materialised per device call; ``koc_out`` additionally accumulates
+    abundance-weighted counts from the query ``.a`` files, in the same
+    walk of the index (``count_ops.count_shared_koc``).
     """
-    if koc_out is not None:
-        raise NotImplementedError(_KOC_MSG)
     n_ref = ref_components[0].n_genomes
     counts = (
         counts_out
@@ -76,14 +73,25 @@ def compute_shared_counts(
     )
     batch = batch or n_qry
     for c, sp in enumerate(ref_components):
-        codes, idx = formats.read_combco(qry_dir, c)
+        if koc_out is not None:
+            codes, idx, abund = formats.read_combco(qry_dir, c, with_abund=True)
+        else:
+            codes, idx = formats.read_combco(qry_dir, c)
         for q0 in range(0, n_qry, batch):
             q1 = min(q0 + batch, n_qry)
             lo, hi = int(idx[q0]), int(idx[q1])
             sub_idx = idx[q0 : q1 + 1] - idx[q0]
-            counts[q0:q1] += count_ops.count_shared(
-                codes[lo:hi], sub_idx, sp, q1 - q0, device
+            if koc_out is None:
+                counts[q0:q1] += count_ops.count_shared(
+                    codes[lo:hi], sub_idx, sp, q1 - q0, device
+                )
+                continue
+            plain, weighted = count_ops.count_shared_koc(
+                codes[lo:hi], sub_idx, abund[lo:hi].astype(np.uint32),
+                sp, q1 - q0, device,
             )
+            counts[q0:q1] += plain
+            koc_out[q0:q1] += weighted
     return counts
 
 
@@ -106,13 +114,12 @@ def search(
     retains the matrix file after printing. ``mem_gb`` (-m) batches
     queries through counting and disk-backs the count matrix so peak RAM
     is bounded by the budget, not the DB size. ``device`` runs the
-    counting there (``None``: the host oracle). ``mesh`` and ``koc`` are
-    not ported yet and raise ``NotImplementedError``.
+    counting there (``None``: the host oracle). ``koc`` appends the
+    abundance-weighted table when the query dir carries ``.a`` files.
+    ``mesh`` is not ported yet and raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError(_MESH_MSG)
-    if koc:
-        raise NotImplementedError(_KOC_MSG)
     opts = opts or stats_ops.OutputOptions()
     timer = utils.StageTimer()
     mco_stat = formats.read_mco_stat(ref_dir)
@@ -128,6 +135,17 @@ def search(
     os.makedirs(out_dir, exist_ok=True)
     n_qry, n_ref = qry_stat.infile_num, mco_stat.infile_num
     skf = shared_kmer_path or os.path.join(out_dir, "sharedk_ct.dat")
+    koc = koc and qry_stat.koc
+    if koc and shared_kmer_path:
+        # sharedk_ct.dat holds only the unweighted counts: the weighted
+        # table cannot be reconstructed on a -f reprint (silently writing
+        # all-zero abundances would be a bogus koc appendix)
+        raise ValueError(
+            "--koc-out cannot be combined with -f (resume from "
+            "sharedk_ct.dat): abundance-weighted counts are not stored "
+            "in the shared-k matrix; rerun the full search with --koc-out"
+        )
+    koc_counts = np.zeros((n_qry, n_ref), dtype=np.uint64) if koc else None
     if shared_kmer_path:
         counts = np.fromfile(skf, dtype="<u4").reshape(n_qry, n_ref)
     else:
@@ -146,6 +164,7 @@ def search(
                 qry_dir, comps, n_qry, device,
                 counts_out=counts,
                 batch=query_batch_size(n_qry, n_ref, mem_gb),
+                koc_out=koc_counts,
             )
             if isinstance(counts, np.memmap):
                 counts.flush()
@@ -170,6 +189,13 @@ def search(
         qry_stat.dim_rd_len,
         opts,
     )
+    if koc_counts is not None:
+        stats_ops.write_koc_distance_out(
+            out_path, counts, koc_counts,
+            mco_stat.ctx_ct, qry_stat.ctx_ct,
+            mco_stat.names, qry_stat.names,
+            qry_stat.kmerlen, qry_stat.dim_rd_len,
+        )
     if not keep_shared_kmer and not shared_kmer_path:
         if isinstance(counts, np.memmap):
             del counts

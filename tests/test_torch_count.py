@@ -1,8 +1,8 @@
 """The port's counting and index modules against the JAX package's, on
 the CPU: random CSR indexes with planted hits through
-``public_kssd_tpu.ops.count.count_shared`` (device path on the CPU
-backend, and the numpy oracle) and through the port's plain version.
-Exact equality: the counts are integers.
+``public_kssd_tpu.ops.count.count_shared`` and ``count_shared_weighted``
+(device path on the CPU backend, and the numpy oracle) and through the
+port's plain versions. Exact equality: the counts are integers.
 """
 
 import numpy as np
@@ -153,3 +153,81 @@ def test_build_component_index_device_sort(space):
             a, b = getattr(got, name), getattr(want, name)
             assert a.dtype == b.dtype, name
             np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+# ---------------------------------------------------------------- koc
+
+
+def _weights(n, seed, planted=()):
+    """uint32 abundances 1..65535; ``planted`` positions get 2^32 - 1."""
+    w = np.random.default_rng(seed + 2000).integers(1, 1 << 16, n).astype(np.uint32)
+    w[list(planted)] = (1 << 32) - 1
+    return w
+
+
+def _koc_all(qc, qidx, w, sp, n_qry):
+    """The port's koc counts four ways (plain tensors, the CPU wrapper,
+    the host entry on the CPU and the host oracle), each checked equal,
+    plus the JAX package's device and host weighted counts."""
+    want = jax_count.count_shared_weighted(qc, qidx, w, sp, n_qry, use_device=False)
+    np.testing.assert_array_equal(
+        jax_count.count_shared_weighted(qc, qidx, w, sp, n_qry, use_device=True),
+        want,
+    )
+    want_plain = jax_count.count_shared_np(
+        qc, qidx, sp.uniq_codes, sp.offsets, sp.gids, n_qry, sp.n_genomes
+    )
+    index = count.DeviceIndex.from_sparse(sp, CPU)
+    args = (count._u32_view(qc), torch.from_numpy(count.query_ids(qidx, qc.size)),
+            count._u32_view(w), index, n_qry)
+    for c, wt in (count.count_shared_koc_torch(*args),
+                  count.count_shared_koc_kernel(*args)):
+        assert c.dtype == torch.int32 and wt.dtype == torch.int64
+        np.testing.assert_array_equal(c.numpy().view(np.uint32), want_plain)
+        np.testing.assert_array_equal(wt.numpy().view(np.uint64), want)
+    for device in (CPU, None):
+        c, wt = count.count_shared_koc(qc, qidx, w, sp, n_qry, device)
+        assert c.dtype == np.uint32 and wt.dtype == np.uint64
+        np.testing.assert_array_equal(c, want_plain)
+        np.testing.assert_array_equal(wt, want)
+        np.testing.assert_array_equal(
+            count.count_shared_weighted(qc, qidx, w, sp, n_qry, device), want
+        )
+    return want, want_plain
+
+
+@pytest.mark.parametrize(
+    "n_ref,n_qry,sketch_sz,seed,space,hot",
+    [
+        (40, 9, 300, 1, 1 << 28, 0),
+        (200, 17, 150, 2, 1 << 20, 150),  # dense hits + a long postings list
+        (64, 5, 500, 3, 1 << 32, 30),  # codes >= 2^31
+    ],
+)
+def test_count_shared_weighted_matches_jax(n_ref, n_qry, sketch_sz, seed, space, hot):
+    """Random CSRs with planted hits; query 0 repeats the hot code (or a
+    hit code) with weight 2^32 - 1, so one cell passes 2^32."""
+    sp, ref, hot_code = _csr(n_ref, sketch_sz, seed, space, hot)
+    rep = hot_code if hot else int(ref[0][0])
+    qc, qidx = _queries(ref, n_qry, sketch_sz, seed, space, [rep] * 3)
+    w = _weights(qc.size, seed, planted=range(int(qidx[1]) - 3, int(qidx[1])))
+    want, want_plain = _koc_all(qc, qidx, w, sp, n_qry)
+    assert int(want[0, 0]) > 1 << 32 and want_plain.sum() > 0
+    assert not want[1].any()  # the empty query
+    assert (want >= want_plain).all()
+
+
+def test_count_shared_weighted_golden_koc(golden7):
+    """The reference's own -A sketches (golden fq_koc and deep_koc, .a
+    abundances) against the golden ref_co sketches."""
+    from public_kssd_tpu_torch import formats
+
+    codes, idx = formats.read_combco(f"{golden7}/ref_co", 0)
+    sp = jax_index.build_component_index(
+        codes, idx, formats.read_co_stat(f"{golden7}/ref_co").infile_num
+    )
+    for qdir in ("fq_koc", "deep_koc"):
+        qc, qidx, ab = formats.read_combco(f"{golden7}/{qdir}", 0, with_abund=True)
+        n_qry = formats.read_co_stat(f"{golden7}/{qdir}").infile_num
+        want, want_plain = _koc_all(qc, qidx, ab.astype(np.uint32), sp, n_qry)
+        assert want_plain.sum() > 0 and (want > want_plain).any()

@@ -32,6 +32,18 @@ DIFFERING = {
     "utils": {"log", "profile_trace"},
     # adds feistel_torch, the int64 tensor twin of feistel
     "shufspace": {"feistel_torch", "_M32"},
+    # looks for the real GTDB size file relative to the working
+    # directory, not at the original's absolute path
+    "synthdb": {"REAL_GTDB_INDEX"},
+    # the device joins run csrc/join.cu (no capacity retry, no
+    # DEVICE_JOIN_THRESHOLD auto-selection, device=None is the host
+    # oracle); the dense -s search is torch; --mesh is not ported
+    "composite": {
+        "DEVICE_JOIN_THRESHOLD", "_batched_join_impl", "_BATCH_JOIN",
+        "_batched_join_fn", "_csr_join_impl", "_CSR_JOIN", "_csr_join_fn",
+        "_overflow_retry", "_batched_stats_device", "_csr_stats_device",
+        "species_abundance", "abv_search_device", "cmd_composite",
+    },
 }
 
 
@@ -124,8 +136,15 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_kernel_sources_and_build_dir():
     """Every kernel builds from csrc/ into build/public_kssd_tpu_torch/,
     under a name keyed by the source and flags, for sm_90a; the narrow
-    and the wide sketch kernels share one library."""
+    and the wide sketch kernels share one library, and so do the plain
+    and the koc counting kernels; the composite join has its own."""
     assert kernels.sketch_wide_kernel.so_path() == kernels.sketch_kernel.so_path()
+    assert kernels.count_koc_kernel.so_path() == kernels.count_kernel.so_path()
+    assert kernels.join_kernel.source == os.path.join(PORT_PKG, "csrc", "join.cu")
+    assert [k.name for k in kernels.ALL] == [
+        "sketch", "sketch_wide", "count", "count_koc", "join"
+    ]
+    assert len({k.so_path() for k in kernels.ALL}) == 3
     assert kernels.BUILD_DIR == os.path.join(REPO, "build", "public_kssd_tpu_torch")
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     for k in kernels.ALL:

@@ -175,12 +175,56 @@ def test_search_batched_keepskf_and_resume(slice7):
 
 
 def test_search_rejects_unported(slice7):
-    with pytest.raises(NotImplementedError, match="koc-weighted"):
-        search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry",
-                      f"{slice7}/torch_koc", device=CPU, koc=True)
     with pytest.raises(NotImplementedError, match="parallel/"):
         search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry",
                       f"{slice7}/torch_mesh", device=CPU, mesh=object())
+
+
+@pytest.fixture(scope="module")
+def koc_jax(slice7):
+    """The JAX package's koc search of the golden fq_koc sketches (the
+    reference's -A output) against the port's index."""
+    from public_kssd_tpu import search as jax_search
+
+    jax_search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc",
+                      f"{slice7}/jax_koc", koc=True)
+    return f"{slice7}/jax_koc/distance.out"
+
+
+@pytest.mark.parametrize("device", [CPU, None])
+def test_koc_search_matches_jax(slice7, koc_jax, device):
+    out = search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc",
+                        f"{slice7}/torch_koc_{device}", device=device, koc=True)
+    assert_files_equal(koc_jax, out)
+    with open(out) as f:
+        lines = f.read().splitlines()
+    n_qry, n_ref = 2, 4
+    assert len(lines) == 1 + 2 * n_qry * n_ref  # plain rows + koc rows
+    assert all(len(r.split("\t")) == 16 for r in lines[1 + n_qry * n_ref:])
+
+
+def test_koc_search_batched_matches_jax(slice7, koc_jax):
+    """-m batching (one query per counting call, disk-backed matrix)."""
+    out = search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc",
+                        f"{slice7}/torch_koc_m", device=CPU, koc=True,
+                        mem_gb=1e-5)
+    assert_files_equal(koc_jax, out)
+
+
+def test_koc_search_resume_rejected(slice7):
+    out = f"{slice7}/torch_koc_f"
+    search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc", out, device=CPU,
+                  keep_shared_kmer=True)
+    with pytest.raises(ValueError, match="koc"):
+        search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc", out,
+                      shared_kmer_path=f"{out}/sharedk_ct.dat", koc=True)
+
+
+def test_koc_search_without_abundance_is_plain(slice7):
+    """A query dir without .a files: koc switches off silently."""
+    out = search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry",
+                        f"{slice7}/torch_koc_plain", device=CPU, koc=True)
+    assert_files_equal(f"{slice7}/distout/distance.out", out)
 
 
 # ---------------------------------------------------------------- CLI
@@ -269,7 +313,6 @@ def test_cli_tutorial_counts_device_equals_host(tutorial):
     [
         ["set", "-u", "x"],
         ["reverse", "-L", "x.shuf", "y"],
-        ["composite", "-r", "x", "-q", "y"],
         ["convert", "krona", "x"],
     ],
 )
@@ -280,13 +323,38 @@ def test_cli_unported_subcommands_exit_2(argv, capsys):
 
 @pytest.mark.parametrize(
     "flag", [["--mesh", "2x4"], ["--shard", "0:2"], ["--merge-shards"],
-             ["--koc-out"], ["--profile", "trace"]],
+             ["--profile", "trace"]],
 )
 def test_cli_unported_dist_flags_rejected(tutorial, flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["dist", "-r", f"{tutorial}/torch/ref", "-o",
                   f"{tutorial}/torch/out_x", f"{tutorial}/torch/qry",
                   "--device", "cpu", *flag])
+
+
+def test_cli_koc_out_matches_kssd_tpu(tutorial, golden7):
+    """dist --koc-out on -A sketches of the golden fastq reads through
+    both CLIs (their own Feistel .shuf and index), and the same on a
+    query dir without .a files."""
+    for main, tag, extra in (
+        (jax_cli.main, "jax", []),
+        (cli.main, "torch", ["--device", "cpu"]),
+    ):
+        d = os.path.join(tutorial, tag)
+        reads = [f"{golden7}/reads0.fq.gz", f"{golden7}/reads1.fq.gz"]
+        assert main(["dist", "-A", "-L", f"{d}/F.shuf", "-o", f"{d}/koc",
+                     *reads, *extra]) == 0
+        for qry, out in (("koc", "out_koc"), ("qry", "out_koc_plain")):
+            assert main(["dist", "-r", f"{d}/ref", "-o", f"{d}/{out}",
+                         "--koc-out", f"{d}/{qry}", *extra]) == 0
+    for rel in ("koc/combco.0", "koc/combco.0.a", "out_koc/distance.out",
+                "out_koc_plain/distance.out"):
+        assert_files_equal(f"{tutorial}/jax/{rel}", f"{tutorial}/torch/{rel}",
+                           rel)
+    assert_files_equal(f"{tutorial}/torch/out/distance.out",
+                       f"{tutorial}/torch/out_koc_plain/distance.out")
+    with open(f"{tutorial}/torch/out_koc/distance.out") as f:
+        assert len(f.read().splitlines()) == 1 + 2 * 2 * 4  # + koc rows
 
 
 # ---------------------------------------------------------------- wide
