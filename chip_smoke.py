@@ -8,9 +8,11 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which raises on failure (the exit code is then nonzero):
 
   1. device   a CUDA card must be visible; prints its name and power limit
-  2. build    compiles csrc/sketch.cu (kernels sketch and sketch_wide) and
-              csrc/count.cu with nvcc into build/public_kssd_tpu_torch/,
-              one nvcc per source, all started together
+  2. build    compiles csrc/sketch.cu (kernels sketch and sketch_wide),
+              csrc/count.cu (count, count_koc, count64, count_koc64) and
+              csrc/join.cu (join, join64) with nvcc into
+              build/public_kssd_tpu_torch/, one nvcc per source, all
+              started together
   3. kernels  each kernel against its plain PyTorch version on the card,
               exact equality, with the time of both:
               sketch at (k,s,l) = (10,6,3) Feistel, (8,5,2) table and
@@ -22,9 +24,15 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               1,000 queries x 10,000 refs x ~1,300 codes (13M postings)
               and on full 32-bit codes; count_koc (the abundance-weighted
               twin) at the same shape with abundances 1..65535 and one
-              planted cell past 2^32; join (composite) on the GTDB-
-              species-shaped database of phase 7b, over the inverted
-              index and over raw DB codes; the stage II device sort
+              planted cell past 2^32; count64 and count_koc64 (the
+              64-bit-key instances of the mesh search) at the same shape
+              with every key moved to code << 36 | 5, so that about half
+              are >= 2^63, also against the host oracle (count64's on the
+              uint64 keys); join
+              (composite) on the GTDB-species-shaped database of phase
+              7b, over the inverted index and over raw DB codes, and
+              join64 on the raw route with keys code << 36 | 7 (its keys
+              equal the 32-bit join's); the stage II device sort
   4. sketch-heavy main path through kssd_torch's CLI: 64 reference and 16
               query genomes of 5.3 Mb (queries are references with 1-5%
               point mutations); shuffle, dist -r refs, dist queries, dist
@@ -54,10 +62,26 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               200,000 codes (koc): the reports over the indexed DB (CSR
               route) and over an unindexed copy (raw route) byte-equal
               to the host oracle
+  8. sharded main path (the mesh search and composite on one card):
+     8a. sharded_search_counts on phase 5's 1,000 x 10k DB over the
+              meshes [cuda:0] 1x1 and [cuda:0]*4 at 1x4 and 2x2, by the
+              genome and the code strategy, equal to the single-device
+              counts; and the --koc-out counts of phase 7a's samples over
+              1x4 and 2x2, equal to the single-device count_shared_koc
+     8b. kssd_torch dist --mesh 1x1, both strategies, on phase 6's L3K12
+              DB (256 components folded into one key space):
+              distance.out byte-equal to phase 6's plain run
+     8c. kssd_torch composite --mesh 1 on phase 7b's GTDB shape, and the
+              same join over [cuda:0]*4: reports byte-equal to 7b's host
+              oracle report
+     8d. dist --shard 0:2, --shard 1:2 and --merge-shards on phase 4's
+              references: the merged combco files byte-equal to phase
+              4's unsharded stage I
 
 Launch counts are reset before phase 4 and read after phase 5 (sketch,
-count), reset before phase 6 and read after it (sketch_wide), and reset
-before phase 7 and read after it (count_koc, join on each route). The
+count), reset before phase 6 and read after it (sketch_wide), reset
+before phase 7 and read after it (count_koc, join on each route), and
+reset before phase 8 and read after it (count64, count_koc64, join64). The
 output ends with a JSON line of per-kernel results, the card's name and
 power limit from nvidia-smi, and the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -391,14 +415,13 @@ def phase_build() -> None:
 def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray]]:
     import torch
 
-    from public_kssd_tpu_torch import formats, shufspace
+    from public_kssd_tpu_torch import formats, kernels, shufspace
     from public_kssd_tpu_torch import index as index_mod
     from public_kssd_tpu_torch.config import SketchParams
     from public_kssd_tpu_torch.ops import count, sketch
     from public_kssd_tpu_torch.seqio import BREAK
 
-    res = {name: {"err": 0} for name in
-           ("sketch", "sketch_wide", "count", "count_koc", "join")}
+    res = {k.name: {"err": 0} for k in kernels.ALL}
     rng = np.random.default_rng(SEED + 1)
     n = SKETCH_SYMBOLS
     n_valid = n - 12_345
@@ -518,6 +541,7 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
         f"cell (0, 0) {int(host_w[0, 0])} > 2^32; counts and sums equal to plain "
         f"and host; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     res["count_koc"].update(ms=ms, plain_ms=plain_ms)
+    phase_count64(device, res, sp, qry, qidx, host, (qry_k, qid_k, w, host_c, host_w))
 
     # full 32-bit codes (CSZ=8 reaches them): unsigned order in the kernel
     sp32, _, q32 = synth_csr(300, 500, 40, SEED + 3, space=1 << 32)
@@ -543,13 +567,75 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
     if not np.array_equal(index_mod.sort_u64(keys, device), np.sort(keys)):
         raise AssertionError("device sort of uint64 keys != np.sort")
     log("[kernels] sign-safe device sort of 2^22 uint64 keys == np.sort")
-    phase_join_kernel(device, work, res["join"])
+    phase_join_kernel(device, work, res)
     return res, (ref_codes, qry)
 
 
+def fold64(codes: np.ndarray, low: int) -> np.ndarray:
+    """Codes below 2^28 -> uint64 keys code << 36 | low: ascending codes
+    stay ascending, equal codes stay equal, and every code >= 2^27 gets
+    a key >= 2^63 (an unsigned-compare fault shows there)."""
+    return (codes.astype(np.uint64) << np.uint64(36)) | np.uint64(low)
+
+
+def phase_count64(device, res: dict, sp, qry, qidx, host, koc) -> None:
+    """count64 and count_koc64 vs their plain versions at the 1000 x 10k
+    shape, every key moved to code << 36 | 5; the counts must also equal
+    the 32-bit results of the same data (host: the numpy oracle)."""
+    import torch
+
+    from public_kssd_tpu_torch.ops import count
+
+    uniq64 = fold64(sp.uniq_codes, 5)
+    assert int(uniq64[0]) < 1 << 63 <= int(uniq64[-1])
+    index = count.DeviceIndex.from_arrays(uniq64, sp.offsets, sp.gids,
+                                          SYNTH_REFS, device)
+    q64 = fold64(qry, 5)
+    qc = torch.from_numpy(q64.view(np.int64)).to(device)
+    qq = torch.from_numpy(count.query_ids(qidx, qry.size)).to(device)
+    got = count.count_shared_kernel(qc, qq, index, SYNTH_QRYS)
+    err = max_abs_err(got, count.count_shared_torch(qc, qq, index, SYNTH_QRYS))
+    res["count64"]["err"] = err
+    host64 = count.count_shared_np(q64, qidx, uniq64, sp.offsets, sp.gids,
+                                   SYNTH_QRYS, SYNTH_REFS)
+    got_np = got.cpu().numpy().view(np.uint32)
+    if err or not np.array_equal(got_np, host64) or not np.array_equal(got_np, host):
+        raise AssertionError(f"count64 kernel != plain/host: max_abs_err {err}")
+    ms = cuda_ms(lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS))
+    plain_ms = cuda_ms(lambda: count.count_shared_torch(qc, qq, index, SYNTH_QRYS))
+    log(f"[kernels] count64 {SYNTH_QRYS} x {SYNTH_REFS}, keys code << 36 | 5 "
+        f"({int((q64 >= np.uint64(1 << 63)).sum())} query keys >= 2^63): equal "
+        f"to plain, to the uint64 host oracle and to the 32-bit counts; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    res["count64"].update(ms=ms, plain_ms=plain_ms)
+
+    qry_k, qid_k, w, host_c, host_w = koc
+    qc_k = torch.from_numpy(fold64(qry_k, 5).view(np.int64)).to(device)
+    qq_k = torch.from_numpy(qid_k).to(device)
+    qw_k = torch.from_numpy(w.view(np.int32)).to(device)
+    got_c, got_w = count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    want_c, want_w = count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    err = max(max_abs_err(got_c, want_c), max_abs_err(got_w, want_w))
+    res["count_koc64"]["err"] = err
+    if (err or not np.array_equal(got_w.cpu().numpy().view(np.uint64), host_w)
+            or not np.array_equal(got_c.cpu().numpy().view(np.uint32), host_c)):
+        raise AssertionError(f"count_koc64 kernel != plain/host: max_abs_err {err}")
+    ms = cuda_ms(lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index,
+                                                       SYNTH_QRYS))
+    plain_ms = cuda_ms(
+        lambda: count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    )
+    log(f"[kernels] count_koc64 {SYNTH_QRYS} x {SYNTH_REFS} + 70000 repeats, keys "
+        f"code << 36 | 5: counts and sums equal to plain and to the 32-bit host "
+        f"oracle (cell (0, 0) {int(host_w[0, 0])}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    res["count_koc64"].update(ms=ms, plain_ms=plain_ms)
+
+
 def phase_join_kernel(device, work: str, res: dict) -> None:
-    """join vs its plain version on the GTDB-shaped database and its 16
-    samples, over the inverted index and over the raw DB codes."""
+    """join vs its plain version on the GTDB-shaped database and its
+    samples, over the inverted index and over the raw DB codes; join64 on
+    the raw route with keys code << 36 | 7."""
     import torch
 
     from public_kssd_tpu_torch import composite, formats
@@ -576,14 +662,16 @@ def phase_join_kernel(device, work: str, res: dict) -> None:
         "raw": (torch.from_numpy(codes.view(np.int32)).to(device), None,
                 torch.from_numpy(rid.astype(np.int32)).to(device)),
     }
-    n_hits = {}
+    n_hits, raw_keys = {}, None
     for route, (u, offs, gids) in routes.items():
         args = (u, offs, gids, *table, shift)
         got = composite.join_kernel(*args)
         want = composite.join_torch(*args)
         err = max_abs_err(got, want)
-        res["err"] = max(res["err"], err)
+        res["join"]["err"] = max(res["join"]["err"], err)
         n_hits[route] = got.numel()
+        if route == "raw":
+            raw_keys = got
         if err or not got.numel() or int(got.min()) < 0:
             raise AssertionError(f"join kernel != plain on the {route} route: "
                                  f"max_abs_err {err}, {got.numel()} keys")
@@ -593,9 +681,26 @@ def phase_join_kernel(device, work: str, res: dict) -> None:
             f"entries): {got.numel()} hit keys equal to plain; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
         if route == "csr":
-            res.update(ms=ms, plain_ms=plain_ms)
+            res["join"].update(ms=ms, plain_ms=plain_ms)
     if n_hits["csr"] != n_hits["raw"]:
         raise AssertionError(f"join routes disagree on the hit count: {n_hits}")
+    u64 = fold64(codes, 7)
+    assert int(u64.max()) >= 1 << 63
+    args = (torch.from_numpy(u64.view(np.int64)).to(device), None, routes["raw"][2],
+            torch.from_numpy(fold64(sq[:n_q], 7).view(np.int64)).to(device),
+            *table[1:], shift)
+    got = composite.join_kernel(*args)
+    err = max_abs_err(got, composite.join_torch(*args))
+    res["join64"]["err"] = err
+    if err or not torch.equal(got, raw_keys):
+        raise AssertionError(f"join64 kernel != plain or != the 32-bit raw keys: "
+                             f"max_abs_err {err}")
+    ms = cuda_ms(lambda: composite.join_kernel(*args))
+    plain_ms = cuda_ms(lambda: composite.join_torch(*args))
+    log(f"[kernels] join64, raw route, keys code << 36 | 7 ({u64.size} DB rows): "
+        f"{got.numel()} hit keys equal to plain and to the 32-bit raw route's; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    res["join64"].update(ms=ms, plain_ms=plain_ms)
 
 
 def phase_sketch_heavy(work: str) -> None:
@@ -658,7 +763,9 @@ def phase_search_heavy(work: str, synth) -> None:
         f"index load and distance.out print); --cpu-count {t_cpu:.3f} s")
 
 
-def phase_wide(work: str) -> None:
+def phase_wide(work: str) -> dict[str, float]:
+    """Returns the search's stage times; keeps ref/, qry/ and out/ under
+    work/wide for phase 8b."""
     from public_kssd_tpu_torch import formats, utils
 
     root = f"{work}/wide"
@@ -723,7 +830,9 @@ def phase_wide(work: str) -> None:
         f"{N_WIDE_QRYS * N_WIDE_REFS} pairs in {t_search:.3f} s CLI wall, count "
         f"stage {search_stages.get('count', 0.0):.3f} s over {comps} components "
         f"[{search_stages}]; --cpu-count {t_cpu:.3f} s")
-    shutil.rmtree(root)
+    for d in (ref_dir, qry_dir, two, f"{root}/two_cuda", f"{root}/two_cpu"):
+        shutil.rmtree(d)
+    return search_stages
 
 
 def phase_reads(work: str) -> None:
@@ -790,8 +899,7 @@ def phase_reads(work: str) -> None:
         f"cuda ({t_cuda:.3f} s), cpu ({t_cpu:.3f} s) and the host oracle; -b "
         f".abv files ({abv_bytes} B) equal; -i and -s 0|1|2 (host walk and "
         "dense on the card) agree")
-    shutil.rmtree(root)
-    shutil.rmtree(f"{work}/refs")
+    shutil.rmtree(f"{root}/samples")  # koc/ feeds phase 8a
 
 
 def check_dense_search(ref: str, query: str, mode: int, host: str,
@@ -831,9 +939,11 @@ def check_dense_search(ref: str, query: str, mode: int, host: str,
         raise AssertionError(f"-s {mode}: dense {d} != host walk {h}")
 
 
-def phase_gtdb(work: str) -> dict[str, int]:
+def phase_gtdb(work: str) -> tuple[dict[str, int], str]:
     """7b: composite at the GTDB species-group database's shape over the
-    inverted index and over raw DB codes, against the host oracle."""
+    inverted index and over raw DB codes, against the host oracle.
+    Returns the join launches by route and the oracle report; keeps the
+    DB for phase 8c."""
     from public_kssd_tpu_torch import composite, kernels, utils
 
     root = f"{work}/gtdb"
@@ -865,8 +975,117 @@ def phase_gtdb(work: str) -> dict[str, int]:
         f"{GTDB_SAMPLE_CODES} codes: stage II index {t_index:.3f} s; host oracle "
         f"{t_oracle:.3f} s; CLI composite csr {walls['csr']:.3f} s, raw "
         f"{walls['raw']:.3f} s")
-    shutil.rmtree(root)
-    return launches
+    shutil.rmtree(idx)
+    return launches, oracle
+
+
+def phase_sharded_counts(device, work: str) -> None:
+    """8a: sharded_search_counts over one-card meshes, both strategies,
+    against the single-device counts, and the --koc-out counts."""
+    import torch
+
+    from public_kssd_tpu_torch import formats, index, parallel, search
+    from public_kssd_tpu_torch.parallel import sharded_search
+
+    cases = (
+        ("sref", "sqry", False, ((1, 1), (1, 4), (2, 2))),
+        ("ref", "meta/koc", True, ((1, 4), (2, 2))),
+    )
+    for ref, qry, koc, shapes in cases:
+        ref, qry = f"{work}/{ref}", f"{work}/{qry}"
+        _, comps = index.load_sparse_index(ref)
+        n_qry = formats.read_co_stat(qry).infile_num
+        n_ref = comps[0].n_genomes
+        koc_want = np.zeros((n_qry, n_ref), np.uint64) if koc else None
+        t0 = time.perf_counter()
+        want = search.compute_shared_counts(qry, comps, n_qry, device,
+                                            koc_out=koc_want)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        if not want.sum() or (koc and not koc_want.sum()):
+            raise AssertionError(f"{qry} shares no codes with {ref}")
+        walls = []
+        for dp, nref in shapes:
+            mesh = parallel.Mesh(dp, nref, (device,) * (dp * nref))
+            for strategy in ("genome", "code"):
+                koc_got = np.zeros((n_qry, n_ref), np.uint64) if koc else None
+                t0 = time.perf_counter()
+                got = sharded_search.sharded_search_counts(
+                    qry, comps, 0, mesh, koc_out=koc_got, strategy=strategy,
+                )
+                walls.append(f"{dp}x{nref} {strategy} {time.perf_counter() - t0:.3f} s")
+                if not np.array_equal(got, want) or (
+                        koc and not np.array_equal(koc_got, koc_want)):
+                    raise AssertionError(f"sharded counts {dp}x{nref} {strategy} "
+                                         f"of {qry} != the single-device counts")
+        log(f"[sharded] {n_qry} x {n_ref}{' --koc-out' if koc else ''}: "
+            f"sharded_search_counts equal to the single-device counts on every "
+            f"mesh; walls (host clock, incl. the fold and the shard build): "
+            f"{'; '.join(walls)}; single device {t_plain:.3f} s")
+
+
+def phase_sharded_cli(work: str, wide_stages: dict[str, float],
+                      gtdb_oracle: str) -> None:
+    """8b-8d through kssd_torch: dist --mesh 1x1 at L3K12, composite
+    --mesh 1 at the GTDB shape (and its join over [cuda:0]*4), and the
+    --shard / --merge-shards stage I."""
+    from public_kssd_tpu_torch import formats, parallel, resolve_device, utils
+    from public_kssd_tpu_torch.parallel import sharded_composite
+
+    wide = f"{work}/wide"
+    stages = StageLog()
+    utils.log.addHandler(stages)
+    try:
+        for strategy in ("genome", "code"):
+            t = run_cli("dist", "-r", f"{wide}/ref", "-o", f"{wide}/out_{strategy}",
+                        "--mesh", "1x1", "--shard-strategy", strategy,
+                        f"{wide}/qry")
+            size = same_bytes(f"{wide}/out/distance.out",
+                              f"{wide}/out_{strategy}/distance.out")
+            log(f"[sharded] L3K12 dist --mesh 1x1 --shard-strategy {strategy}: "
+                f"distance.out {size} B byte-equal to phase 6's; CLI wall {t:.3f} "
+                f"s, count stage {stages.stages['search']['count']:.3f} s over one "
+                f"folded index (phase 6, per component: "
+                f"{wide_stages.get('count', 0.0):.3f} s) [{stages.stages['search']}]")
+    finally:
+        utils.log.removeHandler(stages)
+
+    gtdb = f"{work}/gtdb"
+    t, rep = run_cli_out("composite", "-r", f"{gtdb}/ref", "-q", f"{gtdb}/qry",
+                         "--mesh", "1")
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    rep4 = sharded_composite.species_abundance_sharded(
+        f"{gtdb}/ref", f"{gtdb}/qry", parallel.Mesh(1, 4, (dev,) * 4)
+    )
+    t4 = time.perf_counter() - t0
+    if not rep or rep != gtdb_oracle or rep4 != gtdb_oracle:
+        raise AssertionError("composite --mesh report differs from the host oracle")
+    log(f"[sharded] GTDB shape composite --mesh 1: report ({len(rep.splitlines())} "
+        f"lines) byte-equal to the host oracle, CLI wall {t:.3f} s; the same over "
+        f"[cuda:0]*4 {t4:.3f} s")
+
+    files = sorted(os.listdir(f"{work}/refs"))
+    half = -(-len(files) // 2)
+    # round-robin shards of this list are the two halves of the sorted
+    # files, so the merge restores phase 4's order
+    order = [f for pair in zip(files[:half], files[half:]) for f in pair]
+    with open(f"{work}/refs.list", "w") as f:
+        f.write("".join(f"{work}/refs/{n}\n" for n in order))
+    t0 = time.perf_counter()
+    for s in range(2):
+        run_cli("dist", "-L", f"{work}/L3K10.shuf", "-o", f"{work}/shards",
+                "--shard", f"{s}:2", "-l", f"{work}/refs.list")
+    run_cli("dist", "--merge-shards", "-o", f"{work}/merged", f"{work}/shards")
+    t_shards = time.perf_counter() - t0
+    size = sum(same_bytes(f"{work}/ref/{n}", f"{work}/merged/{n}")
+               for n in ("combco.0", "combco.index.0"))
+    a, b = formats.read_co_stat(f"{work}/ref"), formats.read_co_stat(f"{work}/merged")
+    if a.names != b.names or a.ctx_ct.tolist() != b.ctx_ct.tolist():
+        raise AssertionError("merged shards' cofiles.stat differs from stage I's")
+    log(f"[sharded] dist --shard 0:2, 1:2 and --merge-shards of {len(files)} refs "
+        f"in {t_shards:.3f} s: combco.0 and combco.index.0 ({size} B) byte-equal to "
+        f"phase 4's stage I")
 
 
 def main() -> int:
@@ -892,7 +1111,7 @@ def main() -> int:
     launches = {k.name: k.launches for k in (kernels.sketch_kernel, kernels.count_kernel)}
     for k in kernels.ALL:
         k.launches = 0
-    phase_wide(work)
+    wide_stages = phase_wide(work)
     wide = {k.name: k.launches for k in kernels.ALL}
     log(f"[wide] launches on this path: {wide}")
     launches["sketch_wide"] = wide["sketch_wide"]
@@ -900,17 +1119,28 @@ def main() -> int:
         k.launches = 0
     t7 = time.perf_counter()
     phase_reads(work)
-    join_routes = phase_gtdb(work)
+    join_routes, gtdb_oracle = phase_gtdb(work)
     abundance = {k.name: k.launches for k in kernels.ALL}
     log(f"[abundance] phase 7 in {time.perf_counter() - t7:.1f} s; launches on "
         f"this path: {abundance}, join by route {join_routes}")
     launches["count_koc"] = abundance["count_koc"]
     launches["join"] = abundance["join"]
+    for k in kernels.ALL:
+        k.launches = 0
+    t8 = time.perf_counter()
+    phase_sharded_counts(device, work)
+    phase_sharded_cli(work, wide_stages, gtdb_oracle)
+    sharded = {k.name: k.launches for k in kernels.ALL}
+    log(f"[sharded] phase 8 in {time.perf_counter() - t8:.1f} s; launches on this "
+        f"path: {sharded}")
+    for name in ("count64", "count_koc64", "join64"):
+        launches[name] = sharded[name]
     for name, n in list(launches.items()) + [
         ("count (wide path)", wide["count"]),
         ("sketch (abundance path)", abundance["sketch"]),
         ("join (csr route)", join_routes["csr"]),
         ("join (raw route)", join_routes["raw"]),
+        ("sketch (sharded stage I)", sharded["sketch"]),
     ]:
         if n == 0:
             raise AssertionError(f"{name} kernel was not launched by its main path")
@@ -925,6 +1155,9 @@ def main() -> int:
         "count": "public_kssd_tpu/ops/count.py:300",
         "count_koc": "public_kssd_tpu/ops/count.py:563",
         "join": "public_kssd_tpu/composite.py:152",
+        "count64": "public_kssd_tpu/parallel/sharded_search.py:341",
+        "count_koc64": "public_kssd_tpu/parallel/sharded_search.py:379",
+        "join64": "public_kssd_tpu/parallel/sharded_composite.py:109",
     }
     print(json.dumps({"kernels": [
         {

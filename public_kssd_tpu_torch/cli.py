@@ -12,14 +12,20 @@ Dispatch logic mirrors dist_dispatch (command_dist.c:53-192):
   dist -r <co+mco dir> -o out <qry>   search query co dir vs reference db
   dist -o out <raw seqs>              sketch queries into out
   dist -o out <co dir>                build index (stage II) into out
+  dist -o out <co dir> <co dir> ...   combine query sketch dirs
+
+plus the sharded paths of ``public_kssd_tpu.cli``: ``dist --mesh DPxREF
+[--shard-strategy genome|code]`` (search over a device mesh),
+``composite --mesh N``, and ``dist --shard I:N`` / ``--merge-shards``
+(stage I in shards, merged).
 
 ``--device cuda`` (the default) runs the window pass, the counting (with
 ``--koc-out`` also the abundance-weighted counting) and the composite
 join in the hand-written kernels (csrc/) and raises when no card is
-visible; ``--device cpu`` runs their plain PyTorch versions. ``set``,
-``reverse`` and ``convert``, combining query sketch dirs, ``--mesh``,
-``--shard``, ``--merge-shards`` and ``--profile`` are not ported yet
-(ROADMAP.md) and exit with an error.
+visible; ``--device cpu`` runs their plain PyTorch versions. ``--mesh``
+on cuda takes the first visible cards and exits when there are fewer; on
+cpu it repeats the CPU. ``set``, ``reverse``, ``convert`` and
+``--profile`` are not ported yet (ROADMAP.md) and exit with an error.
 """
 
 from __future__ import annotations
@@ -96,11 +102,19 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--koc-out", action="store_true",
                    help="append abundance-weighted (koc) rows when the "
                    "query dir has .a files (sketched with -A)")
+    p.add_argument("--shard", default="", metavar="I:N",
+                   help="sketch only shard I of N (multi-process stage I)")
+    p.add_argument("--merge-shards", action="store_true",
+                   help="merge a sharded sketch root (from --shard runs) into -o")
+    p.add_argument("--mesh", default="", metavar="DPxREF",
+                   help="search with the DB sharded over a device mesh, "
+                   "e.g. 2x4")
+    p.add_argument("--shard-strategy", default="genome",
+                   choices=["genome", "code"],
+                   help="--mesh DB sharding: 'genome' blocks (column "
+                   "outputs, default) or 'code' ranges (summed partials)")
     # accepted so that kssd_tpu command lines parse, then rejected: not
     # ported yet (ROADMAP.md)
-    p.add_argument("--shard", default="", help=argparse.SUPPRESS)
-    p.add_argument("--merge-shards", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--mesh", default="", help=argparse.SUPPRESS)
     p.add_argument("--profile", default="", help=argparse.SUPPRESS)
     p.add_argument("remaining", nargs="*", help="query files/dirs")
 
@@ -122,8 +136,9 @@ def main(argv: list[str] | None = None) -> int:
                    "-s even at scale")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help=_DEVICE_HELP)
-    # accepted so that kssd_tpu command lines parse, then rejected
-    p.add_argument("--mesh", default="", help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default="", metavar="N",
+                   help="shard the -q join's reference DB over N devices "
+                   "(parallel/sharded_composite.py)")
     p.add_argument("remaining", nargs="*")
 
     for name in _NOT_PORTED:
@@ -143,7 +158,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "composite":
         from public_kssd_tpu_torch import composite
 
-        _reject_unported("composite", args, ("--mesh",))
         return composite.cmd_composite(args)
     return _cmd_dist(args)
 
@@ -220,15 +234,24 @@ def _reject_unported(command: str, args, flags: tuple[str, ...]) -> None:
             )
 
 
+def _make_mesh(command: str, spec: str, dp: int, ref: int, device):
+    """``parallel.make_mesh`` for a CLI flag; exits with the reason when
+    the shape is invalid or too few devices are visible."""
+    from public_kssd_tpu_torch import parallel
+
+    try:
+        return parallel.make_mesh(dp, ref, device)
+    except ValueError as e:
+        sys.exit(f"kssd_torch {command} --mesh {spec}: {e}")
+
+
 def _cmd_dist(args) -> int:
     from public_kssd_tpu_torch import (
         index, infiles, pipeline, resolve_device, search,
     )
     from public_kssd_tpu_torch.ops import stats as stats_ops
 
-    _reject_unported(
-        "dist", args, ("--shard", "--merge-shards", "--mesh", "--profile")
-    )
+    _reject_unported("dist", args, ("--profile",))
     device = resolve_device(args.device)
     index_device = device if args.device_index else None
     opts = pipeline.SketchOptions(
@@ -248,6 +271,31 @@ def _cmd_dist(args) -> int:
         max_dist=args.mut_dist_max,
         top_n=args.num_neigb,
     )
+
+    if args.merge_shards:
+        from public_kssd_tpu_torch.parallel import distributed
+
+        distributed.merge_shards(args.remaining[0], args.outdir)
+        return 0
+    if args.shard:
+        from public_kssd_tpu_torch.parallel import distributed
+
+        try:
+            shard_id, n_shards = (int(x) for x in args.shard.split(":"))
+        except ValueError:
+            sys.exit(f"dist --shard: expected I:N, got {args.shard!r}")
+        if not 0 <= shard_id < n_shards:
+            sys.exit(f"dist --shard {args.shard}: need 0 <= I < N")
+        if args.fpath:
+            files = infiles.organize_infile_list(args.fpath)
+        else:
+            files = infiles.organize_infiles(args.remaining, fmt_ck=not args.pipecmd)
+        params, perm = _load_params(args)
+        distributed.sketch_shard(
+            files, args.outdir, params, perm, opts, shard_id, n_shards,
+            device=device,
+        )
+        return 0
 
     # --- reference side (command_dist.c:60-107) ---
     if args.refpath:
@@ -284,6 +332,14 @@ def _cmd_dist(args) -> int:
                     "search mode needs a sketched query dir: run "
                     "'kssd_torch dist -L <shuf> -o <qdir> <seqs>' first"
                 )
+            mesh = None
+            if args.mesh:
+                try:
+                    dp, ref = (int(x) for x in args.mesh.lower().split("x"))
+                except ValueError:
+                    sys.exit(f"dist --mesh: expected DPxREF (e.g. 2x4), got "
+                             f"{args.mesh!r}")
+                mesh = _make_mesh("dist", args.mesh, dp, ref, device)
             search.search(
                 args.refpath,
                 qry,
@@ -292,21 +348,22 @@ def _cmd_dist(args) -> int:
                 device=None if args.cpu_count else device,
                 keep_shared_kmer=args.keepskf,
                 shared_kmer_path=args.skf or None,
+                mesh=mesh,
+                component_sz=args.component_sz,
                 mem_gb=args.mmry,
                 koc=args.koc_out,
+                shard_strategy=args.shard_strategy,
             )
             return 0
         if qry_is_co:
-            if len(args.remaining) != 1:
-                print(
-                    "kssd_torch dist: combining query sketch dirs is not yet "
-                    "ported to public_kssd_tpu_torch (ROADMAP.md); use kssd_tpu",
-                    file=sys.stderr,
-                )
-                return 2
-            index.run_stage2(qry, args.outdir, args.component_sz,
-                             dense=not args.no_dense_index,
-                             device=index_device)
+            if len(args.remaining) == 1:
+                index.run_stage2(qry, args.outdir, args.component_sz,
+                                 dense=not args.no_dense_index,
+                                 device=index_device)
+            else:
+                from public_kssd_tpu_torch import combine
+
+                combine.combine_queries(args.remaining, args.outdir)
             return 0
         # raw sequences -> sketch into outdir
         if args.fpath:

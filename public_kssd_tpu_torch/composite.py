@@ -95,20 +95,22 @@ def _check_hits(total: int) -> None:
 
 
 def join_torch(
-    u: torch.Tensor,  # int32 [C] bit view of uint32 DB row codes
+    u: torch.Tensor,  # int32 [C] bit view of uint32 DB row codes, or int64
+    #                   bit view of uint64 folded keys (raw route only)
     offs: torch.Tensor | None,  # int64 [C+1] absolute postings offsets
     gids: torch.Tensor,  # int32 postings (CSR) or [C] genome ids (raw)
-    sq: torch.Tensor,  # int32 [Q] bit view of ascending uint32 query codes
+    sq: torch.Tensor,  # [Q] ascending query codes, ``u``'s dtype
     sqid: torch.Tensor,  # int32 [Q] query id per entry
     sab: torch.Tensor,  # int32 [Q] abundance per entry (< 2^16)
     qid_shift: int,
 ) -> torch.Tensor:
-    """Plain version of the join: int64 hit keys of every (DB row x
-    matching query entry x posting), row-major, query entry outer and
-    posting inner. ``offs=None`` is the raw-code route: row i has the
-    single posting ``gids[i]``."""
+    """Plain version of the join (both instances): int64 hit keys of
+    every (DB row x matching query entry x posting), row-major, query
+    entry outer and posting inner. ``offs=None`` is the raw-code route:
+    row i has the single posting ``gids[i]``. 64-bit keys compare in
+    unsigned order (``count_ops._ordered``)."""
     dev = u.device
-    codes, table = count_ops._widen(u), count_ops._widen(sq)
+    codes, table = count_ops._ordered(u), count_ops._ordered(sq)
     n_rows = codes.numel()
     pos_l = torch.searchsorted(table, codes, side="left")
     pos_r = torch.searchsorted(table, codes, side="right")
@@ -150,15 +152,20 @@ def join_kernel(
 ) -> torch.Tensor:
     """int64 hit keys of one join chunk: ``csrc/join.cu`` for CUDA tensors
     (a lengths launch, ``torch.cumsum``, an exact allocation, a fill
-    launch), ``join_torch`` for CPU tensors. Same keys in the same
-    order."""
+    launch; ``kssd_join64`` when ``u`` and ``sq`` are int64 bit views of
+    uint64 folded keys, the raw route of ``composite --mesh``),
+    ``join_torch`` for CPU tensors. Same keys in the same order."""
     if u.device.type != "cuda":
         return join_torch(u, offs, gids, sq, sqid, sab, qid_shift)
     dev = u.device
+    wide = u.dtype == torch.int64
+    if wide and offs is not None:
+        raise ValueError("64-bit keys: only the raw-code route (offs=None)")
     for name, t in (("u", u), ("gids", gids), ("sq", sq), ("sqid", sqid),
                     ("sab", sab)):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device != dev:
-            raise TypeError(f"{name} must be a 1-D int32 tensor on {dev}")
+        dtype = u.dtype if name in ("u", "sq") else torch.int32
+        if t.dtype != dtype or t.dim() != 1 or t.device != dev:
+            raise TypeError(f"{name} must be a 1-D {dtype} tensor on {dev}")
     if not sq.numel() == sqid.numel() == sab.numel():
         raise ValueError("sq, sqid and sab differ in length")
     n_rows = u.numel()
@@ -174,22 +181,22 @@ def join_kernel(
     u, gids = u.contiguous(), gids.contiguous()
     sq, sqid, sab = sq.contiguous(), sqid.contiguous(), sab.contiguous()
     lens = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    kernel = kernels.join64_kernel if wide else kernels.join_kernel
     args = (
-        u.data_ptr(), n_rows, None if offs is None else offs.data_ptr(),
+        u.data_ptr(), n_rows,
+        *(() if wide else (None if offs is None else offs.data_ptr(),)),
         gids.data_ptr(), sq.data_ptr(), sqid.data_ptr(), sab.data_ptr(),
         sq.numel(), qid_shift,
     )
     with torch.cuda.device(dev):
         stream = kernels.stream_handle(dev)
-        kernels.join_kernel.launch(0, *args, lens.data_ptr(), None, stream)
+        kernel.launch(0, *args, lens.data_ptr(), None, stream)
         cum = torch.cumsum(lens, 0)
         total = int(cum[-1])
         _check_hits(total)
         keys = torch.empty(total, dtype=torch.int64, device=dev)
         if total:
-            kernels.join_kernel.launch(
-                1, *args, cum.data_ptr(), keys.data_ptr(), stream
-            )
+            kernel.launch(1, *args, cum.data_ptr(), keys.data_ptr(), stream)
     return keys
 
 
@@ -684,19 +691,42 @@ def read_abv_text(paths: list[str]) -> str:
 
 
 def cmd_composite(args) -> int:
-    """kssd_torch composite: -q (with -b) on ``args.device``; -i, -d and
-    the -s host walk on the host; -s's dense search on ``args.device``
-    when forced (--device-search) or when the matrix is large."""
+    """kssd_torch composite: -q (with -b) on ``args.device``, or over a
+    mesh of its devices with --mesh; -i, -d and the -s host walk on the
+    host; -s's dense search on ``args.device`` when forced
+    (--device-search) or when the matrix is large."""
     if args.refdir:
         if args.qrydir:
             out_dir = args.outdir if len(args.outdir) >= 3 else None
-            report = species_abundance(
-                args.refdir,
-                args.qrydir,
-                out_dir=out_dir,
-                binvec=args.binvec,
-                device=resolve_device(args.device),
-            )
+            if getattr(args, "mesh", ""):
+                import sys
+
+                from public_kssd_tpu_torch import cli
+                from public_kssd_tpu_torch.parallel import sharded_composite
+
+                # accept "N" or dist-style "DPxREF" (queries run
+                # sequentially here, so only the ref factor matters)
+                try:
+                    n = math.prod(int(x) for x in args.mesh.lower().split("x"))
+                except ValueError:
+                    sys.exit(
+                        f"composite --mesh: expected a device count "
+                        f"(or DPxREF), got {args.mesh!r}"
+                    )
+                mesh = cli._make_mesh("composite", args.mesh, 1, n,
+                                      resolve_device(args.device))
+                report = sharded_composite.species_abundance_sharded(
+                    args.refdir, args.qrydir, mesh,
+                    out_dir=out_dir, binvec=args.binvec,
+                )
+            else:
+                report = species_abundance(
+                    args.refdir,
+                    args.qrydir,
+                    out_dir=out_dir,
+                    binvec=args.binvec,
+                    device=resolve_device(args.device),
+                )
             print(report, end="")
             return 0
         if args.idxbv:

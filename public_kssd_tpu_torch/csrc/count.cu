@@ -20,6 +20,15 @@
 // adds the query code's abundance (uint32) into a uint64 matrix with a
 // 64-bit atomicAdd, so a koc search walks the index once for both tables.
 //
+// The 64-bit-key instances (entries kssd_count_shared64 and
+// kssd_count_koc64) replace public_kssd_tpu/parallel/sharded_search.py:
+// _count_partial and _count_partial_pair, the per-shard counting of a
+// mesh search: there the DB codes of all components are folded into one
+// uint64 key space (code << comp_code_bits | component), so the search and
+// the compare run on uint64 keys. Query ids, offsets and gids keep their
+// types. Keys use all 64 bits at (k, s, l) = (16, s, 0); the compares here
+// are unsigned.
+//
 // What bounds it on an H100: dependent global loads (log2(nnz) probes per
 // code, mostly L2 hits for the upper levels of the search) and the
 // atomics. A skew in postings-list length makes threads uneven (a later
@@ -32,12 +41,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kWeighted>
+template <typename Key, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-count_shared_kernel(const uint32_t* __restrict__ qry_codes,
+count_shared_kernel(const Key* __restrict__ qry_codes,
                     const int32_t* __restrict__ qry_qid,
                     const uint32_t* __restrict__ qry_weights, int64_t n_codes,
-                    const uint32_t* __restrict__ uniq, int64_t nnz,
+                    const Key* __restrict__ uniq, int64_t nnz,
                     const int64_t* __restrict__ offsets,
                     const uint32_t* __restrict__ gids, int64_t n_ref,
                     uint32_t* __restrict__ counts,
@@ -47,7 +56,7 @@ count_shared_kernel(const uint32_t* __restrict__ qry_codes,
        i < n_codes; i += stride) {
     const int32_t q = qry_qid[i];
     if (q < 0) continue;
-    const uint32_t code = qry_codes[i];
+    const Key code = qry_codes[i];
     int64_t lo = 0, hi = nnz;
     while (lo < hi) {
       const int64_t mid = (lo + hi) >> 1;
@@ -80,44 +89,71 @@ unsigned grid_for(int64_t n_codes) {
   return static_cast<unsigned>(blocks);
 }
 
+template <typename Key, bool kWeighted>
+int launch(const void* qry_codes, const void* qry_qid, const void* qry_weights,
+           int64_t n_codes, const void* uniq, int64_t nnz, const void* offsets,
+           const void* gids, int64_t n_ref, void* counts, void* weighted,
+           void* stream) {
+  if (n_codes <= 0 || nnz <= 0) return 0;
+  count_shared_kernel<Key, kWeighted><<<grid_for(n_codes), kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Key*>(qry_codes),
+      static_cast<const int32_t*>(qry_qid),
+      static_cast<const uint32_t*>(qry_weights), n_codes,
+      static_cast<const Key*>(uniq), nnz,
+      static_cast<const int64_t*>(offsets),
+      static_cast<const uint32_t*>(gids), n_ref,
+      static_cast<uint32_t*>(counts),
+      static_cast<unsigned long long*>(weighted));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// qry_codes and uniq: uint32 codes (kssd_count_shared, kssd_count_koc) or
+// uint64 folded keys (the *64 entries), uniq ascending; qry_qid int32
+// (negative: skipped); offsets int64 [nnz + 1]; gids uint32 column ids.
+// counts: uint32 [n_qry, n_ref]; weighted: uint64 [n_qry, n_ref], int64
+// on the torch side (the weights are the .a files' uint16 abundances, so
+// the sums stay far below 2^63). Both must be zeroed by the caller.
 extern "C" int kssd_count_shared(const void* qry_codes, const void* qry_qid,
                                  int64_t n_codes, const void* uniq,
                                  int64_t nnz, const void* offsets,
                                  const void* gids, int64_t n_ref,
                                  void* counts, void* stream) {
-  if (n_codes <= 0 || nnz <= 0) return 0;
-  count_shared_kernel<false><<<grid_for(n_codes), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(qry_codes),
-      static_cast<const int32_t*>(qry_qid), nullptr, n_codes,
-      static_cast<const uint32_t*>(uniq), nnz,
-      static_cast<const int64_t*>(offsets),
-      static_cast<const uint32_t*>(gids), n_ref,
-      static_cast<uint32_t*>(counts), nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return launch<uint32_t, false>(qry_codes, qry_qid, nullptr, n_codes, uniq,
+                                 nnz, offsets, gids, n_ref, counts, nullptr,
+                                 stream);
 }
 
-// counts: uint32 [n_qry, n_ref]; weighted: uint64 [n_qry, n_ref], int64
-// on the torch side (the weights are the .a files' uint16 abundances, so
-// the sums stay far below 2^63). Both must be zeroed by the caller.
 extern "C" int kssd_count_koc(const void* qry_codes, const void* qry_qid,
                               const void* qry_weights, int64_t n_codes,
                               const void* uniq, int64_t nnz,
                               const void* offsets, const void* gids,
                               int64_t n_ref, void* counts, void* weighted,
                               void* stream) {
-  if (n_codes <= 0 || nnz <= 0) return 0;
-  count_shared_kernel<true><<<grid_for(n_codes), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(qry_codes),
-      static_cast<const int32_t*>(qry_qid),
-      static_cast<const uint32_t*>(qry_weights), n_codes,
-      static_cast<const uint32_t*>(uniq), nnz,
-      static_cast<const int64_t*>(offsets),
-      static_cast<const uint32_t*>(gids), n_ref,
-      static_cast<uint32_t*>(counts),
-      static_cast<unsigned long long*>(weighted));
-  return static_cast<int>(cudaGetLastError());
+  return launch<uint32_t, true>(qry_codes, qry_qid, qry_weights, n_codes,
+                                uniq, nnz, offsets, gids, n_ref, counts,
+                                weighted, stream);
+}
+
+extern "C" int kssd_count_shared64(const void* qry_codes, const void* qry_qid,
+                                   int64_t n_codes, const void* uniq,
+                                   int64_t nnz, const void* offsets,
+                                   const void* gids, int64_t n_ref,
+                                   void* counts, void* stream) {
+  return launch<uint64_t, false>(qry_codes, qry_qid, nullptr, n_codes, uniq,
+                                 nnz, offsets, gids, n_ref, counts, nullptr,
+                                 stream);
+}
+
+extern "C" int kssd_count_koc64(const void* qry_codes, const void* qry_qid,
+                                const void* qry_weights, int64_t n_codes,
+                                const void* uniq, int64_t nnz,
+                                const void* offsets, const void* gids,
+                                int64_t n_ref, void* counts, void* weighted,
+                                void* stream) {
+  return launch<uint64_t, true>(qry_codes, qry_qid, qry_weights, n_codes,
+                                uniq, nnz, offsets, gids, n_ref, counts,
+                                weighted, stream);
 }

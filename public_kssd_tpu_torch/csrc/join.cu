@@ -22,6 +22,14 @@
 // is a row with the single posting gids[i] (its genome id), so one kernel
 // serves both routes with no offsets array for the raw one.
 //
+// The 64-bit-key instance (entry kssd_join64, raw route) replaces
+// public_kssd_tpu/parallel/sharded_composite.py:_make_join_fn, the
+// per-shard join of composite --mesh: there every component's DB codes
+// and the query table are folded into uint64 keys comp << 32 | code, so
+// the row codes and the sorted query table are uint64 and compare
+// unsigned. The key layout, the lengths launch and the fill launch are the
+// 32-bit kernel's.
+//
 // What bounds it on an H100: the dependent loads of the binary searches
 // (log2 Q probes per row, the upper levels in L2) and, in pass 1, the
 // key writes (8 B per hit). A row whose code many queries share, times a
@@ -36,8 +44,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int64_t lower_bound(const uint32_t* __restrict__ a,
-                                               int64_t n, uint32_t v) {
+template <typename Key>
+__device__ __forceinline__ int64_t lower_bound(const Key* __restrict__ a,
+                                               int64_t n, Key v) {
   int64_t lo = 0, hi = n;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
@@ -50,9 +59,9 @@ __device__ __forceinline__ int64_t lower_bound(const uint32_t* __restrict__ a,
   return lo;
 }
 
-__device__ __forceinline__ int64_t upper_bound(const uint32_t* __restrict__ a,
-                                               int64_t lo, int64_t n,
-                                               uint32_t v) {
+template <typename Key>
+__device__ __forceinline__ int64_t upper_bound(const Key* __restrict__ a,
+                                               int64_t lo, int64_t n, Key v) {
   int64_t hi = n;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
@@ -65,11 +74,11 @@ __device__ __forceinline__ int64_t upper_bound(const uint32_t* __restrict__ a,
   return lo;
 }
 
-template <bool kCsr, bool kFill>
+template <typename Key, bool kCsr, bool kFill>
 __global__ void __launch_bounds__(kThreads)
-join_kernel(const uint32_t* __restrict__ u, int64_t n_rows,
+join_kernel(const Key* __restrict__ u, int64_t n_rows,
             const int64_t* __restrict__ offs, const int32_t* __restrict__ gids,
-            const uint32_t* __restrict__ sq, const int32_t* __restrict__ sqid,
+            const Key* __restrict__ sq, const int32_t* __restrict__ sqid,
             const uint32_t* __restrict__ sab, int64_t n_q, int qid_shift,
             int64_t* __restrict__ len_or_cum, int64_t* __restrict__ keys) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -78,7 +87,7 @@ join_kernel(const uint32_t* __restrict__ u, int64_t n_rows,
     const int64_t start = kCsr ? offs[i] : i;
     const int64_t plen = kCsr ? offs[i + 1] - start : 1;
     if (!kFill) {
-      const uint32_t code = u[i];
+      const Key code = u[i];
       const int64_t pos_l = lower_bound(sq, n_q, code);
       const bool hit = pos_l < n_q && sq[pos_l] == code;
       len_or_cum[i] =
@@ -102,21 +111,24 @@ join_kernel(const uint32_t* __restrict__ u, int64_t n_rows,
   }
 }
 
-template <bool kCsr>
-void launch(int fill, unsigned blocks, cudaStream_t stream,
-            const uint32_t* u, int64_t n_rows, const int64_t* offs,
-            const int32_t* gids, const uint32_t* sq, const int32_t* sqid,
-            const uint32_t* sab, int64_t n_q, int qid_shift,
-            int64_t* len_or_cum, int64_t* keys) {
-  if (fill) {
-    join_kernel<kCsr, true><<<blocks, kThreads, 0, stream>>>(
-        u, n_rows, offs, gids, sq, sqid, sab, n_q, qid_shift, len_or_cum,
-        keys);
-  } else {
-    join_kernel<kCsr, false><<<blocks, kThreads, 0, stream>>>(
-        u, n_rows, offs, gids, sq, sqid, sab, n_q, qid_shift, len_or_cum,
-        keys);
-  }
+template <typename Key, bool kCsr>
+int launch(int fill, int64_t n_rows, void* stream, const void* u,
+           const void* offs, const void* gids, const void* sq,
+           const void* sqid, const void* sab, int64_t n_q, int qid_shift,
+           void* len_or_cum, void* keys) {
+  if (n_rows <= 0) return 0;
+  int64_t blocks = (n_rows + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond one wave
+  const auto kernel = fill ? join_kernel<Key, kCsr, true>
+                            : join_kernel<Key, kCsr, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Key*>(u), n_rows, static_cast<const int64_t*>(offs),
+      static_cast<const int32_t*>(gids), static_cast<const Key*>(sq),
+      static_cast<const int32_t*>(sqid), static_cast<const uint32_t*>(sab),
+      n_q, qid_shift, static_cast<int64_t*>(len_or_cum),
+      static_cast<int64_t*>(keys));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -125,30 +137,27 @@ void launch(int fill, unsigned blocks, cudaStream_t stream,
 // fill = 1: len_or_cum holds their inclusive cumsum; keys receives
 // cum[n_rows - 1] int64 keys. offs = NULL selects the raw-code route
 // (row i is the single posting gids[i]); otherwise offs is int64
-// [n_rows + 1] absolute offsets into gids.
+// [n_rows + 1] absolute offsets into gids. u and sq are uint32 codes.
 extern "C" int kssd_join(int fill, const void* u, int64_t n_rows,
                          const void* offs, const void* gids, const void* sq,
                          const void* sqid, const void* sab, int64_t n_q,
                          int qid_shift, void* len_or_cum, void* keys,
                          void* stream) {
-  if (n_rows <= 0) return 0;
-  int64_t blocks = (n_rows + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond one wave
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* u32 = static_cast<const uint32_t*>(u);
-  const auto* o64 = static_cast<const int64_t*>(offs);
-  const auto* g32 = static_cast<const int32_t*>(gids);
-  const auto* sq32 = static_cast<const uint32_t*>(sq);
-  const auto* sqid32 = static_cast<const int32_t*>(sqid);
-  const auto* sab32 = static_cast<const uint32_t*>(sab);
-  auto* lc = static_cast<int64_t*>(len_or_cum);
-  auto* k = static_cast<int64_t*>(keys);
-  if (o64 != nullptr) {
-    launch<true>(fill, static_cast<unsigned>(blocks), s, u32, n_rows, o64,
-                 g32, sq32, sqid32, sab32, n_q, qid_shift, lc, k);
-  } else {
-    launch<false>(fill, static_cast<unsigned>(blocks), s, u32, n_rows, o64,
-                  g32, sq32, sqid32, sab32, n_q, qid_shift, lc, k);
+  if (offs != nullptr) {
+    return launch<uint32_t, true>(fill, n_rows, stream, u, offs, gids, sq,
+                                  sqid, sab, n_q, qid_shift, len_or_cum, keys);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<uint32_t, false>(fill, n_rows, stream, u, offs, gids, sq, sqid,
+                                 sab, n_q, qid_shift, len_or_cum, keys);
+}
+
+// The raw-code route on uint64 keys: u [n_rows] folded DB keys, gids
+// [n_rows] their genome ids, sq [n_q] the ascending folded query keys;
+// the rest as kssd_join.
+extern "C" int kssd_join64(int fill, const void* u, int64_t n_rows,
+                           const void* gids, const void* sq, const void* sqid,
+                           const void* sab, int64_t n_q, int qid_shift,
+                           void* len_or_cum, void* keys, void* stream) {
+  return launch<uint64_t, false>(fill, n_rows, stream, u, nullptr, gids, sq,
+                                 sqid, sab, n_q, qid_shift, len_or_cum, keys);
 }

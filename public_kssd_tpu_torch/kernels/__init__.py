@@ -131,20 +131,29 @@ sketch_kernel = CudaKernel("sketch", "kssd_sketch_dense", _SKETCH_ARGS)
 sketch_wide_kernel = CudaKernel(
     "sketch_wide", "kssd_sketch_dense_wide", _SKETCH_ARGS, source="sketch"
 )
-count_kernel = CudaKernel(
-    "count", "kssd_count_shared",
-    [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P],
-)
+_COUNT_ARGS = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P]
+_COUNT_KOC_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P, _P]
+count_kernel = CudaKernel("count", "kssd_count_shared", _COUNT_ARGS)
 count_koc_kernel = CudaKernel(
-    "count_koc", "kssd_count_koc",
-    [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P, _P], source="count",
+    "count_koc", "kssd_count_koc", _COUNT_KOC_ARGS, source="count"
 )
 join_kernel = CudaKernel(
     "join", "kssd_join",
     [_I, _P, _I64, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
 )
+# the 64-bit-key instances of the mesh paths (folded component keys)
+count64_kernel = CudaKernel(
+    "count64", "kssd_count_shared64", _COUNT_ARGS, source="count"
+)
+count_koc64_kernel = CudaKernel(
+    "count_koc64", "kssd_count_koc64", _COUNT_KOC_ARGS, source="count"
+)
+join64_kernel = CudaKernel(
+    "join64", "kssd_join64",
+    [_I, _P, _I64, _P, _P, _P, _P, _I64, _I, _P, _P, _P], source="join",
+)
 ALL = (sketch_kernel, sketch_wide_kernel, count_kernel, count_koc_kernel,
-       join_kernel)
+       join_kernel, count64_kernel, count_koc64_kernel, join64_kernel)
 
 
 def stream_handle(device) -> int:

@@ -25,6 +25,13 @@ Codes are unsigned 32-bit values. Tensors carry them as int32 bit views
 int64 with ``& 0xFFFFFFFF``, so codes >= 2^31 keep their order. Weighted
 sums are int64 tensors (torch has no uint64 arithmetic) and uint64 on the
 host.
+
+A mesh search folds the components into one key space of unsigned 64-bit
+keys ``code << comp_code_bits | component`` (parallel/sharded_search.py).
+A ``DeviceIndex`` over such keys holds them as int64 bit views, and the
+same wrappers launch the 64-bit-key instances (``kssd_count_shared64``,
+``kssd_count_koc64``); the plain version flips the sign bit before its
+``searchsorted``, so keys >= 2^63 keep their unsigned order.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from public_kssd_tpu_torch import kernels, resolve_device
 
 _M32 = 0xFFFFFFFF
+_SIGN64 = -(1 << 63)  # int64 with only the sign bit set
 
 
 def _u32_view(a: np.ndarray) -> torch.Tensor:
@@ -49,12 +57,35 @@ def _widen(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & _M32
 
 
+def _ordered(t: torch.Tensor) -> torch.Tensor:
+    """int64 tensor whose signed order is the unsigned order of the keys
+    ``t`` holds: int32 bit views of uint32 codes are widened, int64 bit
+    views of uint64 keys get their sign bit flipped. Equality is kept."""
+    if t.dtype == torch.int32:
+        return _widen(t)
+    if t.dtype == torch.int64:
+        return t ^ _SIGN64
+    raise TypeError(f"keys must be int32 or int64 bit views, not {t.dtype}")
+
+
+def _key_view(a: np.ndarray) -> torch.Tensor:
+    """uint32 codes or uint64 keys -> an int32 / int64 tensor with the
+    same bits (CPU)."""
+    if a.dtype.itemsize == 8:
+        return torch.from_numpy(
+            np.ascontiguousarray(a, dtype="<u8").view(np.int64)
+        )
+    return _u32_view(a)
+
+
 @dataclasses.dataclass
 class DeviceIndex:
-    """One component's CSR inverted index, resident on ``device``.
+    """A CSR inverted index, resident on ``device``: one component's, or
+    one mesh shard's over folded keys.
 
-    ``uniq`` int32 [nnz] (bit view of the ascending uint32 codes),
-    ``offsets`` int64 [nnz+1], ``gids`` int32 [total]."""
+    ``uniq`` int32 [nnz] (bit view of the ascending uint32 codes) or int64
+    [nnz] (bit view of ascending uint64 folded keys), ``offsets`` int64
+    [nnz+1], ``gids`` int32 [total] column ids below ``n_ref``."""
 
     uniq: torch.Tensor
     offsets: torch.Tensor
@@ -72,21 +103,35 @@ class DeviceIndex:
         cached = getattr(sparse_index, "_device_index", None)
         if cached is not None and cached.device == device:
             return cached
-        offs = np.asarray(sparse_index.offsets)
-        if offs.size and int(offs[-1]) >= 1 << 63:
-            raise ValueError("postings total does not fit int64")
-        gids = np.asarray(sparse_index.gids)
-        if gids.size and int(gids.max()) >= 1 << 31:
-            raise ValueError("genome ids must be < 2^31")
-        dev = cls(
-            uniq=_u32_view(sparse_index.uniq_codes).to(device),
-            offsets=torch.from_numpy(offs.astype(np.int64)).to(device),
-            gids=torch.from_numpy(gids.astype(np.int32)).to(device),
-            n_ref=int(sparse_index.n_genomes),
-            device=device,
+        dev = cls.from_arrays(
+            np.asarray(sparse_index.uniq_codes, dtype=np.uint32),
+            sparse_index.offsets, sparse_index.gids,
+            int(sparse_index.n_genomes), device,
         )
         sparse_index._device_index = dev
         return dev
+
+    @classmethod
+    def from_arrays(cls, uniq: np.ndarray, offsets: np.ndarray,
+                    gids: np.ndarray, n_ref: int,
+                    device: torch.device) -> "DeviceIndex":
+        """Upload a host CSR: ``uniq`` ascending uint32 codes or uint64
+        keys (its dtype picks the kernel instance), ``offsets`` [nnz+1],
+        ``gids`` column ids."""
+        device = resolve_device(device)
+        offs = np.asarray(offsets)
+        if offs.size and int(offs[-1]) >= 1 << 63:
+            raise ValueError("postings total does not fit int64")
+        gids = np.asarray(gids)
+        if gids.size and int(gids.max()) >= 1 << 31:
+            raise ValueError("genome ids must be < 2^31")
+        return cls(
+            uniq=_key_view(np.asarray(uniq)).to(device),
+            offsets=torch.from_numpy(offs.astype(np.int64)).to(device),
+            gids=torch.from_numpy(gids.astype(np.int32)).to(device),
+            n_ref=int(n_ref),
+            device=device,
+        )
 
 
 def _match_pairs(
@@ -96,8 +141,8 @@ def _match_pairs(
     qid * n_ref + gid, the position of its query code), both int64; None
     when nothing matches."""
     dev = qry_codes.device
-    uniq = _widen(index.uniq)
-    codes = _widen(qry_codes)
+    uniq = _ordered(index.uniq)
+    codes = _ordered(qry_codes)
     nnz = uniq.numel()
     if nnz == 0 or codes.numel() == 0:
         return None
@@ -123,7 +168,7 @@ def _match_pairs(
 
 
 def count_shared_torch(
-    qry_codes: torch.Tensor,  # int32 [L] bit view of uint32 query codes
+    qry_codes: torch.Tensor,  # int32/int64 [L] bit view, index.uniq's dtype
     qry_qid: torch.Tensor,  # int32 [L] query id per code
     index: DeviceIndex,
     n_qry: int,
@@ -140,7 +185,7 @@ def count_shared_torch(
 
 
 def count_shared_koc_torch(
-    qry_codes: torch.Tensor,  # int32 [L] bit view of uint32 query codes
+    qry_codes: torch.Tensor,  # int32/int64 [L] bit view, index.uniq's dtype
     qry_qid: torch.Tensor,  # int32 [L] query id per code
     qry_weights: torch.Tensor,  # int32 [L] bit view of uint32 abundances
     index: DeviceIndex,
@@ -162,17 +207,24 @@ def count_shared_koc_torch(
 
 
 def _check_query(index: DeviceIndex, **tensors: torch.Tensor) -> None:
-    """The kernels' argument contract: 1-D int32 tensors of one length
-    on the index's device."""
+    """The kernels' argument contract: 1-D tensors of one length on the
+    index's device; the query codes of ``index.uniq``'s dtype, the rest
+    int32."""
     lengths = set()
     for name, t in tensors.items():
-        if t.dtype != torch.int32 or t.dim() != 1 or t.device != index.device:
-            raise TypeError(
-                f"{name} must be a 1-D int32 tensor on {index.device}"
-            )
+        dtype = index.uniq.dtype if name == "qry_codes" else torch.int32
+        if t.dtype != dtype or t.dim() != 1 or t.device != index.device:
+            raise TypeError(f"{name} must be a 1-D {dtype} tensor on "
+                            f"{index.device}")
         lengths.add(t.numel())
     if len(lengths) > 1:
         raise ValueError(f"{', '.join(tensors)} differ in length")
+
+
+def _wide(index: DeviceIndex) -> bool:
+    """True for an index over uint64 folded keys (the 64-bit-key kernel
+    instances), False over uint32 codes."""
+    return index.uniq.dtype == torch.int64
 
 
 def count_shared_kernel(
@@ -182,7 +234,8 @@ def count_shared_kernel(
     n_qry: int,
 ) -> torch.Tensor:
     """int32 [n_qry, n_ref] shared-code counts: ``csrc/count.cu`` for
-    CUDA tensors, ``count_shared_torch`` for CPU tensors.
+    CUDA tensors (``kssd_count_shared``, or ``kssd_count_shared64`` over
+    an index of 64-bit keys), ``count_shared_torch`` for CPU tensors.
 
     The count matrix is indexed with 64-bit offsets inside the kernel, so
     n_qry * n_ref is bounded only by device memory."""
@@ -194,8 +247,9 @@ def count_shared_kernel(
     counts = torch.zeros(
         (n_qry, index.n_ref), dtype=torch.int32, device=qry_codes.device
     )
+    kernel = kernels.count64_kernel if _wide(index) else kernels.count_kernel
     with torch.cuda.device(qry_codes.device):
-        kernels.count_kernel.launch(
+        kernel.launch(
             qry_codes.data_ptr(), qry_qid.data_ptr(), qry_codes.numel(),
             index.uniq.data_ptr(), index.uniq.numel(),
             index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
@@ -212,8 +266,9 @@ def count_shared_koc_kernel(
     n_qry: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(int32 counts, int64 abundance-weighted sums) [n_qry, n_ref] in one
-    walk of the index: ``csrc/count.cu`` (``kssd_count_koc``) for CUDA
-    tensors, ``count_shared_koc_torch`` for CPU tensors."""
+    walk of the index: ``csrc/count.cu`` (``kssd_count_koc``, or
+    ``kssd_count_koc64`` over an index of 64-bit keys) for CUDA tensors,
+    ``count_shared_koc_torch`` for CPU tensors."""
     if qry_codes.device.type != "cuda":
         return count_shared_koc_torch(
             qry_codes, qry_qid, qry_weights, index, n_qry
@@ -226,8 +281,10 @@ def count_shared_koc_kernel(
     shape = (n_qry, index.n_ref)
     counts = torch.zeros(shape, dtype=torch.int32, device=qry_codes.device)
     weighted = torch.zeros(shape, dtype=torch.int64, device=qry_codes.device)
+    kernel = (kernels.count_koc64_kernel if _wide(index)
+              else kernels.count_koc_kernel)
     with torch.cuda.device(qry_codes.device):
-        kernels.count_koc_kernel.launch(
+        kernel.launch(
             qry_codes.data_ptr(), qry_qid.data_ptr(), qry_weights.data_ptr(),
             qry_codes.numel(), index.uniq.data_ptr(), index.uniq.numel(),
             index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
@@ -326,8 +383,11 @@ def count_shared_np(
     n_ref: int,
 ) -> np.ndarray:
     """Host (numpy) counting — reference semantics, used for small inputs
-    and as the oracle in tests."""
+    and as the oracle in tests. An empty index (a component no reference
+    code falls in) shares nothing."""
     counts = np.zeros((n_qry, n_ref), dtype=np.uint32)
+    if uniq_codes.size == 0:
+        return counts
     qid_of = np.searchsorted(
         qry_index[1:], np.arange(qry_codes.size, dtype=np.uint64), "right"
     )
@@ -358,6 +418,8 @@ def count_shared_weighted_np(
     """Host (numpy) abundance-weighted counting -> uint64 [n_qry, n_ref]:
     the oracle (public_kssd_tpu's count_shared_weighted, use_device=False)."""
     counts = np.zeros((n_qry, n_ref), dtype=np.uint64)
+    if uniq_codes.size == 0:
+        return counts
     qid_of = np.searchsorted(
         qry_index[1:], np.arange(qry_codes.size, dtype=np.uint64), "right"
     )

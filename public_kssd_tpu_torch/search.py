@@ -9,8 +9,8 @@ memory-governed query batching (:707-768), and the opt-in koc
 command_dist.c:1080-1160 — dead code in the reference, see
 ops/stats.format_koc_pair_line). Counting runs on a torch device
 (csrc/count.cu on a CUDA card) or, with ``device=None``, in the host
-oracle. The sharded mesh search is not ported yet (ROADMAP.md: parallel/
-on torch.distributed).
+oracle; with a ``parallel.Mesh`` it runs DB-sharded over the mesh's
+devices (parallel/sharded_search.py).
 """
 
 from __future__ import annotations
@@ -25,12 +25,6 @@ from public_kssd_tpu_torch.ops import count as count_ops
 from public_kssd_tpu_torch.ops import stats as stats_ops
 
 PAGE_SZ = 4096  # reference batches in sysconf(_SC_PAGESIZE) units (:747)
-
-
-_MESH_MSG = (
-    "sharded search is not ported to public_kssd_tpu_torch yet "
-    "(ROADMAP.md: parallel/ on torch.distributed)"
-)
 
 
 class ShufIdMismatch(ValueError):
@@ -104,8 +98,10 @@ def search(
     keep_shared_kmer: bool = False,
     shared_kmer_path: str | None = None,
     mesh=None,
+    component_sz: int = 7,
     mem_gb: float = 0.0,
     koc: bool = False,
+    shard_strategy: str = "genome",
 ) -> str:
     """Full search -> ``<out_dir>/distance.out``; returns its path.
 
@@ -116,10 +112,18 @@ def search(
     is bounded by the budget, not the DB size. ``device`` runs the
     counting there (``None``: the host oracle). ``koc`` appends the
     abundance-weighted table when the query dir carries ``.a`` files.
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
+    With ``mesh`` (a ``parallel.Mesh``; it takes the place of ``device``)
+    counting runs DB-sharded over its devices by ``shard_strategy``
+    ('genome' or 'code'), components folded into one key space.
     """
     if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
+        from public_kssd_tpu_torch import parallel
+
+        if not isinstance(mesh, parallel.Mesh):
+            raise TypeError(
+                f"mesh must be a public_kssd_tpu_torch.parallel.Mesh, not "
+                f"{type(mesh).__name__}"
+            )
     opts = opts or stats_ops.OutputOptions()
     timer = utils.StageTimer()
     mco_stat = formats.read_mco_stat(ref_dir)
@@ -160,12 +164,31 @@ def search(
                 )
             else:
                 counts = np.zeros((n_qry, n_ref), dtype=np.uint32)
-            compute_shared_counts(
-                qry_dir, comps, n_qry, device,
-                counts_out=counts,
-                batch=query_batch_size(n_qry, n_ref, mem_gb),
-                koc_out=koc_counts,
-            )
+            batch = query_batch_size(n_qry, n_ref, mem_gb)
+            if mesh is not None:
+                from public_kssd_tpu_torch.parallel import sharded_search
+
+                # component-fold shift straight from the stat geometry
+                # (comp_num = 16^(k-l-CSZ)): no fabricated SketchParams
+                comp_code_bits = max(
+                    4 * (mco_stat.kmerlen // 2 - mco_stat.dim_rd_len // 2
+                         - component_sz), 0,
+                )
+                if (1 << comp_code_bits) < mco_stat.comp_num:
+                    raise ValueError(
+                        f"{mco_stat.comp_num} components do not fit "
+                        f"{comp_code_bits} fold bits: wrong --component-sz?"
+                    )
+                sharded_search.sharded_search_counts(
+                    qry_dir, comps, comp_code_bits, mesh, batch=batch,
+                    counts_out=counts, koc_out=koc_counts,
+                    strategy=shard_strategy,
+                )
+            else:
+                compute_shared_counts(
+                    qry_dir, comps, n_qry, device, counts_out=counts,
+                    batch=batch, koc_out=koc_counts,
+                )
             if isinstance(counts, np.memmap):
                 counts.flush()
             else:

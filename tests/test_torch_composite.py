@@ -330,10 +330,16 @@ def test_cli_composite_matches_kssd_tpu(gold, tmp_path, capsys):
                            rel)
 
 
-def test_cli_composite_mesh_refused(gold):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["composite", "-r", f"{gold}/csr", "-q", f"{gold}/fq_koc",
-                  "--device", "cpu", "--mesh", "2"])
+def test_cli_composite_mesh_refused(gold, capsys):
+    """composite --mesh refuses a spec that names no device; a valid one
+    prints the golden report (parallel/sharded_composite)."""
+    argv = ["composite", "-r", f"{gold}/csr", "-q", f"{gold}/fq_koc",
+            "--device", "cpu", "--mesh"]
+    for bad in ("0", "x"):
+        with pytest.raises(SystemExit, match="--mesh"):
+            cli.main([*argv, bad])
+    assert cli.main([*argv, "2"]) == 0
+    assert capsys.readouterr().out == _read(f"{gold}/composite_report.txt")
 
 
 def test_cli_composite_default_device_raises_without_card(gold):

@@ -19,7 +19,8 @@ JAX_PKG = os.path.join(REPO, "public_kssd_tpu")
 PORT_PKG = os.path.join(REPO, "public_kssd_tpu_torch")
 
 # host modules copied line for line; only the package name differs
-VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup", "ops/stats"]
+VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup", "ops/stats",
+            "combine"]
 
 # copies that differ on purpose: the top-level definitions named here
 # differ, every other definition the two files share must be identical
@@ -37,12 +38,31 @@ DIFFERING = {
     "synthdb": {"REAL_GTDB_INDEX"},
     # the device joins run csrc/join.cu (no capacity retry, no
     # DEVICE_JOIN_THRESHOLD auto-selection, device=None is the host
-    # oracle); the dense -s search is torch; --mesh is not ported
+    # oracle); the dense -s search is torch; --mesh runs
+    # parallel/sharded_composite on a torch device mesh
     "composite": {
         "DEVICE_JOIN_THRESHOLD", "_batched_join_impl", "_BATCH_JOIN",
         "_batched_join_fn", "_csr_join_impl", "_CSR_JOIN", "_csr_join_fn",
         "_overflow_retry", "_batched_stats_device", "_csr_stats_device",
         "species_abundance", "abv_search_device", "cmd_composite",
+    },
+    # torch.distributed instead of jax.distributed; stage I on a torch
+    # device
+    "parallel/distributed": {"initialize", "sketch_shard"},
+    # ragged shards on a torch device mesh, counted by csrc/count.cu's
+    # 64-bit-key instances: no padding, rank tables, pair capacity,
+    # shard_map step or 22-bit collective planes; the component fold
+    # and the query keys are the same
+    "parallel/sharded_search": {
+        "ShardedDB", "build_sharded_db", "build_genome_sharded_db",
+        "_attach_buckets", "_window_search", "_rowgather_lookup",
+        "_count_partial", "_count_partial_pair", "make_sharded_count_fn",
+        "sharded_search_counts", "estimate_capacity", "_sharded_count_block",
+    },
+    # ragged position shards joined by csrc/join.cu's 64-bit-key
+    # instance: no pad key, no capacity retry; the folds are the same
+    "parallel/sharded_composite": {
+        "_PAD_KEY", "_shard_db", "_make_join_fn", "species_abundance_sharded",
     },
 }
 
@@ -136,13 +156,18 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_kernel_sources_and_build_dir():
     """Every kernel builds from csrc/ into build/public_kssd_tpu_torch/,
     under a name keyed by the source and flags, for sm_90a; the narrow
-    and the wide sketch kernels share one library, and so do the plain
-    and the koc counting kernels; the composite join has its own."""
+    and the wide sketch kernels share one library, the four counting
+    kernels (plain and koc, 32-bit codes and 64-bit keys) another, and
+    the two composite joins a third."""
     assert kernels.sketch_wide_kernel.so_path() == kernels.sketch_kernel.so_path()
-    assert kernels.count_koc_kernel.so_path() == kernels.count_kernel.so_path()
+    for k in (kernels.count_koc_kernel, kernels.count64_kernel,
+              kernels.count_koc64_kernel):
+        assert k.so_path() == kernels.count_kernel.so_path()
+    assert kernels.join64_kernel.so_path() == kernels.join_kernel.so_path()
     assert kernels.join_kernel.source == os.path.join(PORT_PKG, "csrc", "join.cu")
     assert [k.name for k in kernels.ALL] == [
-        "sketch", "sketch_wide", "count", "count_koc", "join"
+        "sketch", "sketch_wide", "count", "count_koc", "join", "count64",
+        "count_koc64", "join64",
     ]
     assert len({k.so_path() for k in kernels.ALL}) == 3
     assert kernels.BUILD_DIR == os.path.join(REPO, "build", "public_kssd_tpu_torch")

@@ -175,7 +175,9 @@ def test_search_batched_keepskf_and_resume(slice7):
 
 
 def test_search_rejects_unported(slice7):
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """A mesh that is not the port's (e.g. a jax.sharding.Mesh) is
+    refused, not run on some other path."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry",
                       f"{slice7}/torch_mesh", device=CPU, mesh=object())
 
@@ -321,12 +323,18 @@ def test_cli_unported_subcommands_exit_2(argv, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
+# --profile is not ported; the sharded flags are, and refuse bad specs
+_REJECTED = {"--profile": "not yet ported", "--mesh": "expected DPxREF",
+             "--shard": "expected I:N", "--merge-shards": "manifest"}
+
+
 @pytest.mark.parametrize(
-    "flag", [["--mesh", "2x4"], ["--shard", "0:2"], ["--merge-shards"],
+    "flag", [["--mesh", "2"], ["--shard", "0"], ["--merge-shards"],
              ["--profile", "trace"]],
 )
 def test_cli_unported_dist_flags_rejected(tutorial, flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises((SystemExit, FileNotFoundError),
+                       match=_REJECTED[flag[0]]):
         cli.main(["dist", "-r", f"{tutorial}/torch/ref", "-o",
                   f"{tutorial}/torch/out_x", f"{tutorial}/torch/qry",
                   "--device", "cpu", *flag])
