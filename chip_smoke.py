@@ -14,21 +14,30 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               build/public_kssd_tpu_torch/, one nvcc per source, all
               started together
   3. kernels  each kernel against its plain PyTorch version on the card,
-              exact equality, with the time of both:
-              sketch at (k,s,l) = (10,6,3) Feistel, (8,5,2) table and
-              (6,5,1) Feistel on 2^24 packed symbols; sketch_wide at
-              (12,6,3) Feistel and table (36-bit codes), (15,7,1) Feistel
-              (56 bits) and (16,6,1) Feistel (60 bits, W = 32);
-              sketch_codes_stream at (10,6,3) and (12,6,3) on the card
-              against the same call on CPU tensors; count at
-              1,000 queries x 10,000 refs x ~1,300 codes (13M postings)
-              and on full 32-bit codes; count_koc (the abundance-weighted
-              twin) at the same shape with abundances 1..65535 and one
-              planted cell past 2^32; count64 and count_koc64 (the
-              64-bit-key instances of the mesh search) at the same shape
-              with every key moved to code << 36 | 5, so that about half
-              are >= 2^63, also against the host oracle (count64's on the
-              uint64 keys); join
+              exact equality, with the time of both (CUDA events around
+              the wrapper call), the device time split by kernel
+              (torch.profiler) and the bound (the bytes the call must
+              move over 3.35 TB/s, or its operations over the ALU rate):
+              sketch (positions and codes of the kept windows) at
+              (k,s,l) = (10,6,3) Feistel, (8,5,2) table and (6,5,1)
+              Feistel on 2^24 packed symbols; sketch_wide at (12,6,3)
+              Feistel and table (36-bit codes), (15,7,1) Feistel (56
+              bits) and (16,6,1) Feistel (60 bits, W = 32); both on 2^24
+              symbols holding a poly-A run of 2^20 bases in a space that
+              keeps every window of it; sketch_codes_stream at (10,6,3)
+              and (12,6,3) on the card against the same call on CPU
+              tensors; count at 1,000 queries x 10,000 refs x ~1,300
+              codes (13M postings, the shared-row variant) and on full
+              32-bit codes; count_koc (the abundance-weighted twin) at
+              the same shape with abundances 1..65535 and one planted
+              cell past 2^32; count64 and count_koc64 (the 64-bit-key
+              instances of the mesh search) at the same shape with every
+              key moved to code << 36 | 5, so that about half are >=
+              2^63, also against the host oracle (count64's on the
+              uint64 keys); all four instances again in the
+              global-atomics variant at the GTDB species-group shape of
+              phase 7b (65,702 refs x 8 samples), against the host
+              oracle; join
               (composite) on the GTDB-species-shaped database of phase
               7b, over the inverted index and over raw DB codes, and
               join64 on the raw route with keys code << 36 | 7 (its keys
@@ -142,13 +151,55 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 3) -> tuple[float | None, dict[str, float]]:
+    """Device milliseconds per call of ``fn`` (the kernels, copies and
+    memsets it puts on the card, once each per call; torch.profiler over
+    ``reps`` calls after a warm-up call) and the same split by name;
+    (None, {}) where the profiler reports no device time. Each name's
+    time is its mean per occurrence: the profiler may drop a call's
+    events, and a sum over ``reps`` would then read low."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and e.count:
+            by_name[e.key] = us / 1e3 / e.count
+    total = sum(by_name.values())
+    return (total or None), by_name
+
+
+def device_note(fn) -> str:
+    """``device_ms`` of ``fn`` as a log fragment: the total and the three
+    largest parts (names cut to 40 characters)."""
+    total, parts = device_ms(fn)
+    if total is None:
+        return "device time not measured (the profiler saw no device work)"
+    top = sorted(parts.items(), key=lambda kv: -kv[1])[:3]
+    return f"device {total:.4f} ms [" + "; ".join(
+        f"{k[:40]} {v:.4f}" for k, v in top) + "]"
+
+
 def max_abs_err(a, b) -> int:
     """Largest absolute difference of two integer tensors (int64)."""
     import torch
 
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    if a.numel() == 0:
+        return 0
+    err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    # a difference of 2^63 wraps to a negative int64
+    return err if err > 0 or torch.equal(a, b) else 1 << 63
 
 
 def run_cli(*argv: str) -> float:
@@ -439,24 +490,34 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
             shuf = shufspace.ComputedShuf(p.id, p.half_subctx_len)
         else:
             shuf = sketch.as_shuf(formats.make_shuffled_dim(p, seed=k), device)
-        got = sketch.sketch_windows_dense(words, n_valid, shuf, p)
-        want = sketch.sketch_windows_dense_plain(words, n_valid, shuf, p)
-        err = max_abs_err(got, want)
-        res[name]["err"] = max(res[name]["err"], err)
-        kept = int((got != sketch.SENTINEL).sum())
-        if (err or kept == 0 or got.dtype != sketch.dense_dtype(p)
-                or bool((got[n_valid - p.TL + 1:] != -1).any())):
-            raise AssertionError(f"{name} kernel != plain at {(k, s, l, mode)}: "
-                                 f"max_abs_err {err}, kept {kept}, {got.dtype}")
-        ms = cuda_ms(lambda: sketch.sketch_windows_dense(words, n_valid, shuf, p))
-        plain_ms = cuda_ms(
-            lambda: sketch.sketch_windows_dense_plain(words, n_valid, shuf, p), 2
-        )
+        kept, ms, plain_ms = check_sketch(name, res, words, n_valid, shuf, p,
+                                          (k, s, l, mode))
         log(f"[kernels] {name} (k,s,l)=({k},{s},{l}) {mode}, {p.drtuple_bits}-bit "
-            f"codes: {n} windows, {kept} kept, equal; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+            f"codes: {n} windows, {kept} kept, (pos, code) equal; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
         if (k, s, l, mode) in timed:
-            res[name].update(ms=ms, plain_ms=plain_ms)
+            res[name].update(ms=ms, plain_ms=plain_ms,
+                             bound=sketch_bound(words.numel(), n_valid - p.TL + 1,
+                                                kept, p))
+
+    # every window kept: a poly-A run of 2^20 bases in a space whose rank
+    # of the inner value 0 (poly-A's canonical k-mer) is kept
+    poly = sym.copy()
+    run = (n // 4, n // 4 + n // 16)  # 2^20 bases at 2^24 symbols
+    poly[run[0]:run[1]] = 0
+    poly_words = torch.from_numpy(sketch.pack2(poly, n).view(np.int32)).to(device)
+    for k in (10, 12):
+        p = kept_at_zero(k, 6, 3)
+        shuf = shufspace.ComputedShuf(p.id, p.half_subctx_len)
+        name = "sketch_wide" if p.drtuple_bits > 31 else "sketch"
+        pos, kept = check_sketch(name, res, poly_words, n, shuf, p,
+                                 (k, 6, 3, "poly-A"), timing=False)
+        in_run = run[1] - run[0] - p.TL + 1
+        if int(((pos >= run[0]) & (pos < run[1] - p.TL + 1)).sum()) != in_run:
+            raise AssertionError(f"{name}: a window of the poly-A run was dropped")
+        log(f"[kernels] {name} (k,s,l)=({k},6,3) Feistel id {p.id}, poly-A run of "
+            f"{run[1] - run[0]} bases: all {in_run} windows of the run kept, "
+            f"{kept} in all, (pos, code) equal to plain")
 
     # the streaming path around the kernels: breaks, tails, chunking
     brk = sym.copy()
@@ -485,23 +546,33 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
         f"({time.perf_counter() - t0:.1f} s host)")
     qidx = np.arange(SYNTH_QRYS + 1, dtype=np.uint64) * SYNTH_SKETCH
     index = count.DeviceIndex.from_sparse(sp, device)
+    if count.count_variant(index.n_ref, koc=True) != "shared":
+        raise AssertionError("1,000 x 10k should take the shared-row variant")
     qc = torch.from_numpy(qry.view(np.int32)).to(device)
     qq = torch.from_numpy(count.query_ids(qidx, qry.size)).to(device)
-    got = count.count_shared_kernel(qc, qq, index, SYNTH_QRYS)
-    want = count.count_shared_torch(qc, qq, index, SYNTH_QRYS)
-    err = max_abs_err(got, want)
-    res["count"]["err"] = err
+    seg = torch.from_numpy(qidx.astype(np.int64)).to(device)
     host = count.count_shared_np(qry, qidx, sp.uniq_codes, sp.offsets, sp.gids,
                                  SYNTH_QRYS, SYNTH_REFS)
-    if err or not np.array_equal(got.cpu().numpy().view(np.uint32), host) or not host.sum():
-        raise AssertionError(f"count kernel != plain/host: max_abs_err {err}")
-    ms = cuda_ms(lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS))
+    want = count.count_shared_torch(qc, qq, index, SYNTH_QRYS)
+    for args in ((qc, qq, index, SYNTH_QRYS), (qc, qq, index, SYNTH_QRYS, seg)):
+        got = count.count_shared_kernel(*args)
+        err = max_abs_err(got, want)
+        res["count"]["err"] = max(res["count"]["err"], err)
+        if (err or not np.array_equal(got.cpu().numpy().view(np.uint32), host)
+                or not host.sum()):
+            raise AssertionError(f"count kernel != plain/host: max_abs_err {err}")
+    ms = cuda_ms(lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS, seg))
+    ms_check = cuda_ms(lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS))
     plain_ms = cuda_ms(lambda: count.count_shared_torch(qc, qq, index, SYNTH_QRYS))
     pairs = SYNTH_QRYS * SYNTH_REFS
-    log(f"[kernels] count {SYNTH_QRYS} x {SYNTH_REFS}: {int(host.sum())} shared "
-        f"codes, equal to plain and host; kernel {ms:.4f} ms "
-        f"({pairs / ms * 1e3:.4g} pairs/s), plain {plain_ms:.4f} ms")
-    res["count"].update(ms=ms, plain_ms=plain_ms)
+    log(f"[kernels] count {SYNTH_QRYS} x {SYNTH_REFS}, shared-row variant: "
+        f"{int(host.sum())} shared codes, equal to plain and host; kernel {ms:.4f} "
+        f"ms ({pairs / ms * 1e3:.4g} pairs/s; {ms_check:.4f} ms without the "
+        f"segments, with the order check), plain {plain_ms:.4f} ms")
+    log("[kernels] count: " + device_note(
+        lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS, seg)))
+    res["count"].update(ms=ms, plain_ms=plain_ms,
+                        bound=count_bound(qry, sp.uniq_codes, sp.offsets, pairs, False))
 
     # the koc twin at the same shape: abundances 1..65535, and query 0
     # repeats one code of reference 0 70,000 times at 65535, so that cell
@@ -518,7 +589,8 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
     qc_k = torch.from_numpy(qry_k.view(np.int32)).to(device)
     qq_k = torch.from_numpy(qid_k).to(device)
     qw_k = torch.from_numpy(w.view(np.int32)).to(device)
-    got_c, got_w = count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
+    seg_k = torch.from_numpy(qidx_k.astype(np.int64)).to(device)
+    got_c, got_w = count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS, seg_k)
     want_c, want_w = count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
     err = max(max_abs_err(got_c, want_c), max_abs_err(got_w, want_w))
     res["count_koc"]["err"] = err
@@ -532,16 +604,22 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
             or int(host_w[0, 0]) <= 1 << 32):
         raise AssertionError(f"count_koc kernel != plain/host: max_abs_err {err}, "
                              f"cell (0, 0) {int(host_w[0, 0])}")
-    ms = cuda_ms(lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS))
+    ms = cuda_ms(lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index,
+                                                       SYNTH_QRYS, seg_k))
     plain_ms = cuda_ms(
         lambda: count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
     )
-    log(f"[kernels] count_koc {SYNTH_QRYS} x {SYNTH_REFS} + {n_rep} repeats: "
-        f"{int(host_c.sum())} shared codes, weighted sum {int(host_w.sum())}, "
-        f"cell (0, 0) {int(host_w[0, 0])} > 2^32; counts and sums equal to plain "
-        f"and host; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    res["count_koc"].update(ms=ms, plain_ms=plain_ms)
-    phase_count64(device, res, sp, qry, qidx, host, (qry_k, qid_k, w, host_c, host_w))
+    log(f"[kernels] count_koc {SYNTH_QRYS} x {SYNTH_REFS} + {n_rep} repeats, "
+        f"shared-row variant: {int(host_c.sum())} shared codes, weighted sum "
+        f"{int(host_w.sum())}, cell (0, 0) {int(host_w[0, 0])} > 2^32; counts and "
+        f"sums equal to plain and host; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    log("[kernels] count_koc: " + device_note(
+        lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS, seg_k)))
+    res["count_koc"].update(ms=ms, plain_ms=plain_ms,
+                            bound=count_bound(qry_k, sp.uniq_codes, sp.offsets,
+                                              pairs, True))
+    phase_count64(device, res, sp, qry, qidx, host,
+                  (qry_k, qid_k, w, qidx_k, host_c, host_w))
 
     # full 32-bit codes (CSZ=8 reaches them): unsigned order in the kernel
     sp32, _, q32 = synth_csr(300, 500, 40, SEED + 3, space=1 << 32)
@@ -571,6 +649,105 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
     return res, (ref_codes, qry)
 
 
+# Bounds: the larger of the bytes a call must move over an H100's HBM
+# rate (3.35 TB/s) and its operations over the card's peak rate. NVIDIA's
+# data sheet gives no int32 rate; its float32 rate outside the tensor
+# cores, 67 TFLOP/s with an FMA counted as two, is 33.5e12 lane operations
+# a second, which stands in for the integer ALU (an optimistic bound: the
+# int32 lanes are half as many).
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 33.5e12
+# integer operations a Feistel window needs at least: rolling two 64-bit
+# strands by one base (~14), the canonical minimum (4), the inner
+# substring (2), three Feistel rounds and the high-half test (~23; the
+# fourth round runs for ~1 window in 4,096), the keep bit (2)
+OPS_PER_WINDOW = 45
+
+
+def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a call that moves n_bytes and does n_ops."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sketch_bound(n_words: int, n_windows: int, kept: int, p) -> tuple[float, str]:
+    """Packed words read once, each kept (pos, code) written once; the
+    window work of every window."""
+    code_bytes = 8 if p.drtuple_bits > 31 else 4
+    return bound(4 * n_words + kept * (8 + code_bytes), OPS_PER_WINDOW * n_windows)
+
+
+def count_bound(codes: np.ndarray, uniq: np.ndarray, offsets: np.ndarray,
+                n_cells: int, koc: bool) -> tuple[float, str]:
+    """The bytes a count call must move with this run's data: the query
+    codes, their ids (and weights) read once, one index key per code, the
+    offsets and postings of the codes found, and the count matrix (and the
+    koc sums) written once."""
+    row = np.searchsorted(uniq, codes)
+    found = row < uniq.size
+    found[found] = uniq[row[found]] == codes[found]
+    postings = int((offsets[row[found] + 1] - offsets[row[found]]).sum())
+    per_code = 2 * codes.itemsize + 4 + (4 if koc else 0)
+    return bound(codes.size * per_code + int(found.sum()) * 16 + postings * 4
+                 + n_cells * (12 if koc else 4))
+
+
+def join_bound(n_rows: int, key_bytes: int, n_q: int, hit_rows: int,
+               hit_postings: int, n_keys: int, csr: bool) -> tuple[float, str]:
+    """The bytes a join call must move with this run's data: every DB row's
+    key and the query table (key, id, abundance) read once, the offsets
+    (CSR) and genome ids of the rows that hit, and the hit keys written
+    once."""
+    return bound(n_rows * key_bytes + n_q * (key_bytes + 8)
+                 + hit_rows * (16 if csr else 0) + hit_postings * 4 + n_keys * 8)
+
+
+def kept_at_zero(k: int, s: int, l: int):
+    """SketchParams at (k, s, l) whose Feistel space keeps the inner value
+    0: the first .shuf id whose rank of 0 is below dim_end."""
+    from public_kssd_tpu_torch import shufspace
+    from public_kssd_tpu_torch.config import SketchParams
+
+    zero = np.zeros(1, np.uint32)
+    for seed in range(1 << 20):
+        p = SketchParams(id=seed, half_ctx_len=k, half_subctx_len=s, drlevel=l)
+        if int(shufspace.feistel(np, zero, seed, s)[0]) < p.dim_end:
+            return p
+    raise AssertionError("no .shuf id keeps the inner value 0")
+
+
+def check_sketch(name: str, res: dict, words, n_valid: int, shuf, p, case,
+                 timing: bool = True):
+    """sketch_windows_kept on the card against its plain version on the
+    same tensors: positions and codes equal element for element, in
+    ascending position, none reaching past n_valid. Returns (kept, ms,
+    plain_ms), or (positions, kept) without timing."""
+    import torch
+
+    from public_kssd_tpu_torch.ops import sketch
+
+    pos, code = sketch.sketch_windows_kept(words, n_valid, shuf, p)
+    want_pos, want_code = sketch.sketch_windows_kept_plain(words, n_valid, shuf, p)
+    err = max(max_abs_err(pos, want_pos), max_abs_err(code, want_code))
+    res[name]["err"] = max(res[name]["err"], err)
+    kept = pos.numel()
+    if (err or kept == 0 or code.dtype != sketch.dense_dtype(p)
+            or bool((pos[1:] <= pos[:-1]).any())
+            or int(pos[-1]) + p.TL > n_valid):
+        raise AssertionError(f"{name} kernel != plain at {case}: max_abs_err "
+                             f"{err}, kept {kept}, {code.dtype}")
+    if not timing:
+        return pos, kept
+    ms = cuda_ms(lambda: sketch.sketch_windows_kept(words, n_valid, shuf, p))
+    plain_ms = cuda_ms(
+        lambda: sketch.sketch_windows_kept_plain(words, n_valid, shuf, p), 2
+    )
+    log(f"[kernels] {name} {case}: "
+        + device_note(lambda: sketch.sketch_windows_kept(words, n_valid, shuf, p)))
+    torch.cuda.synchronize()
+    return kept, ms, plain_ms
+
+
 def fold64(codes: np.ndarray, low: int) -> np.ndarray:
     """Codes below 2^28 -> uint64 keys code << 36 | low: ascending codes
     stay ascending, equal codes stay equal, and every code >= 2^27 gets
@@ -593,7 +770,8 @@ def phase_count64(device, res: dict, sp, qry, qidx, host, koc) -> None:
     q64 = fold64(qry, 5)
     qc = torch.from_numpy(q64.view(np.int64)).to(device)
     qq = torch.from_numpy(count.query_ids(qidx, qry.size)).to(device)
-    got = count.count_shared_kernel(qc, qq, index, SYNTH_QRYS)
+    seg = torch.from_numpy(qidx.astype(np.int64)).to(device)
+    got = count.count_shared_kernel(qc, qq, index, SYNTH_QRYS, seg)
     err = max_abs_err(got, count.count_shared_torch(qc, qq, index, SYNTH_QRYS))
     res["count64"]["err"] = err
     host64 = count.count_shared_np(q64, qidx, uniq64, sp.offsets, sp.gids,
@@ -601,18 +779,25 @@ def phase_count64(device, res: dict, sp, qry, qidx, host, koc) -> None:
     got_np = got.cpu().numpy().view(np.uint32)
     if err or not np.array_equal(got_np, host64) or not np.array_equal(got_np, host):
         raise AssertionError(f"count64 kernel != plain/host: max_abs_err {err}")
-    ms = cuda_ms(lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS))
+    ms = cuda_ms(lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS, seg))
     plain_ms = cuda_ms(lambda: count.count_shared_torch(qc, qq, index, SYNTH_QRYS))
-    log(f"[kernels] count64 {SYNTH_QRYS} x {SYNTH_REFS}, keys code << 36 | 5 "
-        f"({int((q64 >= np.uint64(1 << 63)).sum())} query keys >= 2^63): equal "
-        f"to plain, to the uint64 host oracle and to the 32-bit counts; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    res["count64"].update(ms=ms, plain_ms=plain_ms)
+    log(f"[kernels] count64 {SYNTH_QRYS} x {SYNTH_REFS}, shared-row variant, keys "
+        f"code << 36 | 5 ({int((q64 >= np.uint64(1 << 63)).sum())} query keys >= "
+        f"2^63; directory shift {index.dir_shift}): equal to plain, to the uint64 "
+        f"host oracle and to the 32-bit counts; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    log("[kernels] count64: " + device_note(
+        lambda: count.count_shared_kernel(qc, qq, index, SYNTH_QRYS, seg)))
+    pairs = SYNTH_QRYS * SYNTH_REFS
+    res["count64"].update(ms=ms, plain_ms=plain_ms,
+                          bound=count_bound(q64, uniq64, sp.offsets, pairs, False))
 
-    qry_k, qid_k, w, host_c, host_w = koc
-    qc_k = torch.from_numpy(fold64(qry_k, 5).view(np.int64)).to(device)
+    qry_k, qid_k, w, qidx_k, host_c, host_w = koc
+    q64_k = fold64(qry_k, 5)
+    qc_k = torch.from_numpy(q64_k.view(np.int64)).to(device)
     qq_k = torch.from_numpy(qid_k).to(device)
     qw_k = torch.from_numpy(w.view(np.int32)).to(device)
+    seg_k = torch.from_numpy(qidx_k.astype(np.int64)).to(device)
     got_c, got_w = count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
     want_c, want_w = count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
     err = max(max_abs_err(got_c, want_c), max_abs_err(got_w, want_w))
@@ -621,15 +806,69 @@ def phase_count64(device, res: dict, sp, qry, qidx, host, koc) -> None:
             or not np.array_equal(got_c.cpu().numpy().view(np.uint32), host_c)):
         raise AssertionError(f"count_koc64 kernel != plain/host: max_abs_err {err}")
     ms = cuda_ms(lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index,
-                                                       SYNTH_QRYS))
+                                                       SYNTH_QRYS, seg_k))
     plain_ms = cuda_ms(
         lambda: count.count_shared_koc_torch(qc_k, qq_k, qw_k, index, SYNTH_QRYS)
     )
-    log(f"[kernels] count_koc64 {SYNTH_QRYS} x {SYNTH_REFS} + 70000 repeats, keys "
-        f"code << 36 | 5: counts and sums equal to plain and to the 32-bit host "
-        f"oracle (cell (0, 0) {int(host_w[0, 0])}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    res["count_koc64"].update(ms=ms, plain_ms=plain_ms)
+    log(f"[kernels] count_koc64 {SYNTH_QRYS} x {SYNTH_REFS} + 70000 repeats, "
+        f"shared-row variant, keys code << 36 | 5: counts and sums equal to plain "
+        f"and to the 32-bit host oracle (cell (0, 0) {int(host_w[0, 0])}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    log("[kernels] count_koc64: " + device_note(
+        lambda: count.count_shared_koc_kernel(qc_k, qq_k, qw_k, index, SYNTH_QRYS,
+                                              seg_k)))
+    res["count_koc64"].update(ms=ms, plain_ms=plain_ms,
+                              bound=count_bound(q64_k, uniq64, sp.offsets, pairs, True))
+
+
+def phase_count_global(device, sp, qc: np.ndarray, qi: np.ndarray,
+                       qa: np.ndarray) -> None:
+    """The global-atomics variant of all four count instances, at the GTDB
+    species-group shape (65,702 references: a row exceeds a block's shared
+    memory) with the GTDB_SAMPLES koc samples as queries, against the
+    plain versions and the host oracles; the 64-bit instances on keys
+    code << 36 | 3."""
+    import torch
+
+    from public_kssd_tpu_torch.ops import count
+
+    n_qry, n_ref = GTDB_SAMPLES, GTDB_REFS
+    for koc in (False, True):
+        if count.count_variant(n_ref, koc) != "global":
+            raise AssertionError("the GTDB shape should take the global variant")
+    w = qa.astype(np.uint32)
+    host_c = count.count_shared_np(qc, qi, sp.uniq_codes, sp.offsets, sp.gids,
+                                   n_qry, n_ref)
+    host_w = count.count_shared_weighted_np(qc, qi, w, sp.uniq_codes, sp.offsets,
+                                            sp.gids, n_qry, n_ref)
+    qq = torch.from_numpy(count.query_ids(qi, qc.size)).to(device)
+    qw = torch.from_numpy(w.view(np.int32)).to(device)
+    times = []
+    for wide in (False, True):
+        if wide:
+            index = count.DeviceIndex.from_arrays(fold64(sp.uniq_codes, 3),
+                                                  sp.offsets, sp.gids, n_ref, device)
+            q = torch.from_numpy(fold64(qc, 3).view(np.int64)).to(device)
+        else:
+            index = count.DeviceIndex.from_sparse(sp, device)
+            q = torch.from_numpy(qc.view(np.int32)).to(device)
+        c = count.count_shared_kernel(q, qq, index, n_qry)
+        kc, kw = count.count_shared_koc_kernel(q, qq, qw, index, n_qry)
+        err = max(max_abs_err(c, count.count_shared_torch(q, qq, index, n_qry)),
+                  *(max_abs_err(a, b) for a, b in zip(
+                      (kc, kw), count.count_shared_koc_torch(q, qq, qw, index, n_qry))))
+        for t, want in ((c, host_c), (kc, host_c), (kw, host_w)):
+            if err or not np.array_equal(t.cpu().numpy().view(want.dtype), want):
+                raise AssertionError(f"count global variant (64-bit keys: {wide}) "
+                                     f"!= plain/host: max_abs_err {err}")
+        times.append(cuda_ms(lambda: count.count_shared_kernel(q, qq, index, n_qry)))
+        times.append(cuda_ms(lambda: count.count_shared_koc_kernel(q, qq, qw, index,
+                                                                   n_qry)))
+        log(f"[kernels] count{'64' if wide else ''}, global variant: " + device_note(
+            lambda: count.count_shared_kernel(q, qq, index, n_qry)))
+    log(f"[kernels] count, count_koc, count64, count_koc64, global-atomics variant "
+        f"at {n_qry} x {n_ref} ({qc.size} query codes, {int(host_c.sum())} shared): "
+        f"equal to plain and host; kernels {', '.join(f'{t:.4f}' for t in times)} ms")
 
 
 def phase_join_kernel(device, work: str, res: dict) -> None:
@@ -652,6 +891,7 @@ def phase_join_kernel(device, work: str, res: dict) -> None:
         f"({sp.uniq_codes.size} unique), {GTDB_SAMPLES} samples x "
         f"{GTDB_SAMPLE_CODES} codes ({n_q} table entries) "
         f"({time.perf_counter() - t0:.1f} s host)")
+    phase_count_global(device, sp, qc, qi, qa)
     table = [torch.from_numpy(a[:n_q].astype(np.uint32).view(np.int32)).to(device)
              for a in (sq, sqid, sab)]
     shift = 16 + GTDB_REFS.bit_length()
@@ -681,7 +921,10 @@ def phase_join_kernel(device, work: str, res: dict) -> None:
             f"entries): {got.numel()} hit keys equal to plain; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
         if route == "csr":
-            res["join"].update(ms=ms, plain_ms=plain_ms)
+            hit = np.isin(sp.uniq_codes, sq[:n_q])
+            postings = int(np.diff(sp.offsets.astype(np.int64))[hit].sum())
+            res["join"].update(ms=ms, plain_ms=plain_ms, bound=join_bound(
+                u.numel(), 4, n_q, int(hit.sum()), postings, got.numel(), csr=True))
     if n_hits["csr"] != n_hits["raw"]:
         raise AssertionError(f"join routes disagree on the hit count: {n_hits}")
     u64 = fold64(codes, 7)
@@ -700,7 +943,9 @@ def phase_join_kernel(device, work: str, res: dict) -> None:
     log(f"[kernels] join64, raw route, keys code << 36 | 7 ({u64.size} DB rows): "
         f"{got.numel()} hit keys equal to plain and to the 32-bit raw route's; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    res["join64"].update(ms=ms, plain_ms=plain_ms)
+    hit_rows = int(np.isin(codes, sq[:n_q]).sum())
+    res["join64"].update(ms=ms, plain_ms=plain_ms, bound=join_bound(
+        u64.size, 8, n_q, hit_rows, hit_rows, got.numel(), csr=False))
 
 
 def phase_sketch_heavy(work: str) -> None:
@@ -1169,6 +1414,11 @@ def main() -> int:
             "max_abs_err": res[k.name]["err"],
             "ms": res[k.name]["ms"],
             "plain_ms": res[k.name]["plain_ms"],
+            "bound_ms": res[k.name]["bound"][0],
+            "bound_by": res[k.name]["bound"][1],
+            # no one PyTorch call computes a sketch, a sparse count or a
+            # join (PERF.md)
+            "library_ms": None,
         }
         for k in kernels.ALL
     ]}))

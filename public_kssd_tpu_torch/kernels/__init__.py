@@ -69,7 +69,8 @@ class CudaKernel:
 
     ``launches`` counts the successful launches through ``launch`` and
     nothing else, so a run can show that its path went through the
-    kernel."""
+    kernel. A kernel whose work takes two launches (the sketch kernel's
+    keep and fill passes) counts the second with ``count=False``."""
 
     def __init__(self, name: str, entry: str, argtypes: list,
                  source: str | None = None):
@@ -115,24 +116,29 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, count: bool = True) -> None:
         """Launch through the C entry; raise on a nonzero cudaError_t."""
         err = self.function()(*args)
         if err != 0:
             raise KernelLaunchError(
                 f"{self.entry} returned cudaError_t {err}"
             )
-        self.launches += 1
+        if count:
+            self.launches += 1
 
 
-_SKETCH_ARGS = [_P, _I64, _I64, _I, _I, _U32, _U64, _U64, _I, _I, _I, _I, _I,
-                _U32, _U32, _U32, _U32, _P, _P, _P]
-sketch_kernel = CudaKernel("sketch", "kssd_sketch_dense", _SKETCH_ARGS)
+_SKETCH_ARGS = [_I, _P, _I64, _I64, _I, _I, _U32, _U64, _U64, _I, _I, _I, _I,
+                _I, _U32, _U32, _U32, _U32, _P, _I64, _P, _P, _P, _P, _P]
+sketch_kernel = CudaKernel("sketch", "kssd_sketch", _SKETCH_ARGS)
 sketch_wide_kernel = CudaKernel(
-    "sketch_wide", "kssd_sketch_dense_wide", _SKETCH_ARGS, source="sketch"
+    "sketch_wide", "kssd_sketch_wide", _SKETCH_ARGS, source="sketch"
 )
-_COUNT_ARGS = [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P]
-_COUNT_KOC_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P, _P]
+# variant, codes, qids, [weights,] n_codes, seg, n_qry, uniq, nnz, dir,
+# n_buckets, shift, offsets, gids, n_ref, counts, [weighted,] stream
+_COUNT_ARGS = [_I, _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I, _P, _P,
+               _I64, _P, _P]
+_COUNT_KOC_ARGS = [_I, _P, _P, _P, _I64, _P, _I64, _P, _I64, _P, _I64, _I, _P,
+                   _P, _I64, _P, _P, _P]
 count_kernel = CudaKernel("count", "kssd_count_shared", _COUNT_ARGS)
 count_koc_kernel = CudaKernel(
     "count_koc", "kssd_count_koc", _COUNT_KOC_ARGS, source="count"

@@ -6,10 +6,14 @@ increments a query x ref counter matrix with OpenMP threads
 device:
 
   * ``count_shared_kernel`` — the wrapper of the hand-written kernel
-    ``csrc/count.cu`` (one thread per query code: a lower-bound binary
-    search in the sorted unique DB codes, then one integer atomic add per
-    posting). It launches the kernel for CUDA tensors and runs the plain
-    version for CPU tensors.
+    ``csrc/count.cu``: each query code is looked up through the index's
+    bucket directory (``DeviceIndex.dir``) and every posting of a hit adds
+    one. Two variants, chosen by the size of a count row
+    (``count_variant``): ``shared``, one block per query accumulating its
+    row in shared memory and writing it whole, and ``global``, one thread
+    per code adding into a zeroed matrix with global atomics. It launches
+    the kernel for CUDA tensors and runs the plain version for CPU
+    tensors.
   * ``count_shared_torch`` — the plain PyTorch version (``searchsorted``
     on int64, ``repeat_interleave`` expansion, ``bincount``).
   * ``count_shared_np`` — the host numpy oracle (reference semantics).
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from public_kssd_tpu_torch import kernels, resolve_device
+from public_kssd_tpu_torch.utils import log
 
 _M32 = 0xFFFFFFFF
 _SIGN64 = -(1 << 63)  # int64 with only the sign bit set
@@ -78,6 +83,39 @@ def _key_view(a: np.ndarray) -> torch.Tensor:
     return _u32_view(a)
 
 
+def bucket_directory(uniq: torch.Tensor, max_key: int,
+                     bits: int | None = None) -> tuple[torch.Tensor, int]:
+    """The bucket directory of an ascending index of int32 / int64 bit
+    views whose largest key, as an unsigned integer, is ``max_key`` (the
+    caller has it on the host, so no read-back is needed): (dir int64
+    [2^bits + 1], shift) on ``uniq``'s device, where ``dir[b]`` is the
+    lower bound in ``uniq`` of the key ``b << shift`` (unsigned) and
+    ``dir[2^bits]`` is nnz, so the keys whose top bits are ``b`` lie in
+    ``uniq[dir[b]:dir[b+1]]``.
+
+    ``shift = max(bit_length(max_key) - bits, 0)`` takes the buckets over
+    the keys' real width. ``bits`` defaults to bit_length(nnz) - 4, at
+    most the max key's bit length: 8-16 keys a bucket for uniform keys
+    (2^20 buckets, 8 MB, at 13M keys)."""
+    nnz = uniq.numel()
+    top = max_key.bit_length() if nnz else 0
+    if bits is None:
+        bits = min(max(nnz.bit_length() - 4, 0), top)
+    shift = max(top - bits, 0)
+    bounds = torch.arange(1 << bits, dtype=torch.int64, device=uniq.device)
+    bounds = bounds << shift  # int64 shifts wrap: the uint64 bit pattern
+    if uniq.dtype == torch.int64:
+        bounds = bounds ^ _SIGN64
+    d = torch.empty((1 << bits) + 1, dtype=torch.int64, device=uniq.device)
+    d[:-1] = torch.searchsorted(_ordered(uniq), bounds)
+    d[-1] = nnz
+    return d, shift
+
+
+# indexes up to this many keys build their bucket directory on the host
+HOST_DIRECTORY_KEYS = 1 << 16
+
+
 @dataclasses.dataclass
 class DeviceIndex:
     """A CSR inverted index, resident on ``device``: one component's, or
@@ -85,13 +123,17 @@ class DeviceIndex:
 
     ``uniq`` int32 [nnz] (bit view of the ascending uint32 codes) or int64
     [nnz] (bit view of ascending uint64 folded keys), ``offsets`` int64
-    [nnz+1], ``gids`` int32 [total] column ids below ``n_ref``."""
+    [nnz+1], ``gids`` int32 [total] column ids below ``n_ref``; ``dir`` and
+    ``dir_shift`` its bucket directory (``bucket_directory``), which the
+    count kernel searches through."""
 
     uniq: torch.Tensor
     offsets: torch.Tensor
     gids: torch.Tensor
     n_ref: int
     device: torch.device
+    dir: torch.Tensor
+    dir_shift: int
 
     @classmethod
     def from_sparse(cls, sparse_index, device: torch.device) -> "DeviceIndex":
@@ -117,7 +159,7 @@ class DeviceIndex:
                     device: torch.device) -> "DeviceIndex":
         """Upload a host CSR: ``uniq`` ascending uint32 codes or uint64
         keys (its dtype picks the kernel instance), ``offsets`` [nnz+1],
-        ``gids`` column ids."""
+        ``gids`` column ids; and build its bucket directory there."""
         device = resolve_device(device)
         offs = np.asarray(offsets)
         if offs.size and int(offs[-1]) >= 1 << 63:
@@ -125,12 +167,25 @@ class DeviceIndex:
         gids = np.asarray(gids)
         if gids.size and int(gids.max()) >= 1 << 31:
             raise ValueError("genome ids must be < 2^31")
+        uniq = np.asarray(uniq)
+        host_keys = _key_view(uniq)
+        keys = host_keys.to(device)
+        # a small index builds its directory on the host, where its few
+        # tensor operations cost less than as device launches (an L3K12
+        # search uploads 256 small component indexes); a large one on the
+        # device, where a host search over millions of keys is slow
+        directory, shift = bucket_directory(
+            host_keys if uniq.size <= HOST_DIRECTORY_KEYS else keys,
+            int(uniq[-1]) if uniq.size else 0,
+        )
         return cls(
-            uniq=_key_view(np.asarray(uniq)).to(device),
+            uniq=keys,
             offsets=torch.from_numpy(offs.astype(np.int64)).to(device),
             gids=torch.from_numpy(gids.astype(np.int32)).to(device),
             n_ref=int(n_ref),
             device=device,
+            dir=directory.to(device),
+            dir_shift=shift,
         )
 
 
@@ -227,35 +282,106 @@ def _wide(index: DeviceIndex) -> bool:
     return index.uniq.dtype == torch.int64
 
 
+# shared memory a block of csrc/count.cu's row variant may opt into on an
+# H100 (227 KB); the kernel checks the card's own limit and refuses more
+ROW_SMEM_BYTES = 232_448
+
+
+def count_variant(n_ref: int, koc: bool) -> str:
+    """The count kernel's variant for rows of ``n_ref`` columns: "shared"
+    where a row (uint32 counts, and uint64 sums for koc) fits a block's
+    shared memory, else "global"."""
+    return "shared" if n_ref * (12 if koc else 4) <= ROW_SMEM_BYTES else "global"
+
+
+def query_segments(qry_qid: torch.Tensor, n_qry: int) -> torch.Tensor:
+    """int64 [n_qry + 1]: query q's codes are positions seg[q]..seg[q+1]
+    of codes grouped by ascending query id (``query_ids`` order; negative
+    ids sort first and belong to no query)."""
+    ids = torch.arange(n_qry + 1, dtype=qry_qid.dtype, device=qry_qid.device)
+    return torch.searchsorted(qry_qid, ids)
+
+
+def _grouped(qry_qid: torch.Tensor, qry_codes: torch.Tensor,
+             qry_weights: torch.Tensor | None):
+    """(qry_qid, qry_codes, qry_weights) with the codes grouped by
+    ascending query id: as given where they already are (``query_ids``
+    order), else reordered by a stable sort of the ids on their device.
+    Counts and sums do not depend on the order of the codes."""
+    if qry_qid.numel() < 2 or not bool((qry_qid[1:] < qry_qid[:-1]).any()):
+        return qry_qid, qry_codes, qry_weights
+    qid, order = torch.sort(qry_qid, stable=True)
+    return qid, qry_codes[order], None if qry_weights is None else qry_weights[order]
+
+
+def _launch_count(kernel, koc: bool, qry_codes, qry_qid, qry_weights,
+                  index: DeviceIndex, n_qry: int, qry_seg):
+    """Allocate the outputs, pick the variant, launch; returns (counts,
+    weighted or None)."""
+    dev = qry_codes.device
+    shape = (n_qry, index.n_ref)
+    variant = count_variant(index.n_ref, koc)
+    log.debug("count kernel %s: %s variant, %d codes x %d refs", kernel.name,
+              variant, qry_codes.numel(), index.n_ref)
+    if variant == "shared":
+        if qry_seg is None:
+            qry_qid, qry_codes, qry_weights = _grouped(qry_qid, qry_codes,
+                                                       qry_weights)
+            qry_seg = query_segments(qry_qid, n_qry)
+        elif (qry_seg.dtype != torch.int64 or qry_seg.shape != (n_qry + 1,)
+              or qry_seg.device != dev):
+            raise TypeError(f"qry_seg must be int64 [{n_qry + 1}] on {dev}")
+        alloc = torch.empty
+    else:
+        alloc = torch.zeros
+    counts = alloc(shape, dtype=torch.int32, device=dev)
+    weighted = alloc(shape, dtype=torch.int64, device=dev) if koc else None
+    if counts.numel() == 0:
+        return counts, weighted
+    qry_codes, qry_qid = qry_codes.contiguous(), qry_qid.contiguous()
+    if koc:
+        qry_weights = qry_weights.contiguous()
+    if qry_seg is not None:
+        qry_seg = qry_seg.contiguous()
+    with torch.cuda.device(dev):
+        kernel.launch(
+            0 if variant == "shared" else 1, qry_codes.data_ptr(),
+            qry_qid.data_ptr(), *((qry_weights.data_ptr(),) if koc else ()),
+            qry_codes.numel(),
+            None if qry_seg is None else qry_seg.data_ptr(),
+            n_qry, index.uniq.data_ptr(), index.uniq.numel(),
+            index.dir.data_ptr(), index.dir.numel() - 1, index.dir_shift,
+            index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
+            counts.data_ptr(),
+            *((weighted.data_ptr(),) if koc else ()),
+            kernels.stream_handle(dev),
+        )
+    return counts, weighted
+
+
 def count_shared_kernel(
     qry_codes: torch.Tensor,
     qry_qid: torch.Tensor,
     index: DeviceIndex,
     n_qry: int,
+    qry_seg: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """int32 [n_qry, n_ref] shared-code counts: ``csrc/count.cu`` for
     CUDA tensors (``kssd_count_shared``, or ``kssd_count_shared64`` over
     an index of 64-bit keys), ``count_shared_torch`` for CPU tensors.
 
+    The codes may come in any order. ``qry_seg`` (int64 [n_qry + 1] on
+    the device, the cumulative index of the query sketches) may be given
+    where the codes are grouped by ascending query id, as ``query_ids``
+    gives them; the shared-row variant then needs no check of the order.
     The count matrix is indexed with 64-bit offsets inside the kernel, so
     n_qry * n_ref is bounded only by device memory."""
     if qry_codes.device.type != "cuda":
         return count_shared_torch(qry_codes, qry_qid, index, n_qry)
     _check_query(index, qry_codes=qry_codes, qry_qid=qry_qid)
-    qry_codes = qry_codes.contiguous()
-    qry_qid = qry_qid.contiguous()
-    counts = torch.zeros(
-        (n_qry, index.n_ref), dtype=torch.int32, device=qry_codes.device
-    )
     kernel = kernels.count64_kernel if _wide(index) else kernels.count_kernel
-    with torch.cuda.device(qry_codes.device):
-        kernel.launch(
-            qry_codes.data_ptr(), qry_qid.data_ptr(), qry_codes.numel(),
-            index.uniq.data_ptr(), index.uniq.numel(),
-            index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
-            counts.data_ptr(), kernels.stream_handle(qry_codes.device),
-        )
-    return counts
+    return _launch_count(kernel, False, qry_codes, qry_qid, None, index,
+                         n_qry, qry_seg)[0]
 
 
 def count_shared_koc_kernel(
@@ -264,34 +390,23 @@ def count_shared_koc_kernel(
     qry_weights: torch.Tensor,
     index: DeviceIndex,
     n_qry: int,
+    qry_seg: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(int32 counts, int64 abundance-weighted sums) [n_qry, n_ref] in one
     walk of the index: ``csrc/count.cu`` (``kssd_count_koc``, or
     ``kssd_count_koc64`` over an index of 64-bit keys) for CUDA tensors,
-    ``count_shared_koc_torch`` for CPU tensors."""
+    ``count_shared_koc_torch`` for CPU tensors. ``qry_seg`` as for
+    ``count_shared_kernel``."""
     if qry_codes.device.type != "cuda":
         return count_shared_koc_torch(
             qry_codes, qry_qid, qry_weights, index, n_qry
         )
     _check_query(index, qry_codes=qry_codes, qry_qid=qry_qid,
                  qry_weights=qry_weights)
-    qry_codes = qry_codes.contiguous()
-    qry_qid = qry_qid.contiguous()
-    qry_weights = qry_weights.contiguous()
-    shape = (n_qry, index.n_ref)
-    counts = torch.zeros(shape, dtype=torch.int32, device=qry_codes.device)
-    weighted = torch.zeros(shape, dtype=torch.int64, device=qry_codes.device)
     kernel = (kernels.count_koc64_kernel if _wide(index)
               else kernels.count_koc_kernel)
-    with torch.cuda.device(qry_codes.device):
-        kernel.launch(
-            qry_codes.data_ptr(), qry_qid.data_ptr(), qry_weights.data_ptr(),
-            qry_codes.numel(), index.uniq.data_ptr(), index.uniq.numel(),
-            index.offsets.data_ptr(), index.gids.data_ptr(), index.n_ref,
-            counts.data_ptr(), weighted.data_ptr(),
-            kernels.stream_handle(qry_codes.device),
-        )
-    return counts, weighted
+    return _launch_count(kernel, True, qry_codes, qry_qid, qry_weights, index,
+                         n_qry, qry_seg)
 
 
 def query_ids(qry_index: np.ndarray, n_codes: int) -> np.ndarray:
@@ -299,6 +414,16 @@ def query_ids(qry_index: np.ndarray, n_codes: int) -> np.ndarray:
     return np.searchsorted(
         qry_index[1:], np.arange(n_codes, dtype=np.uint64), "right"
     ).astype(np.int32)
+
+
+def _segments(qry_index: np.ndarray, n_codes: int,
+              index: DeviceIndex) -> torch.Tensor:
+    """A sketch directory's cumulative index as the count kernel's query
+    segments (int64 on the index's device), with the positions that
+    ``query_ids`` gives each query."""
+    seg = np.minimum(np.asarray(qry_index).astype(np.int64), n_codes)
+    seg[0] = 0
+    return torch.from_numpy(seg).to(index.device)
 
 
 def count_shared(
@@ -325,7 +450,8 @@ def count_shared(
     index = DeviceIndex.from_sparse(sparse_index, device)
     qc = _u32_view(qry_codes).to(index.device)
     qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
-    counts = count_shared_kernel(qc, qq, index, n_qry)
+    seg = _segments(qry_index, qry_codes.size, index)
+    counts = count_shared_kernel(qc, qq, index, n_qry, seg)
     return counts.cpu().numpy().view(np.uint32)
 
 
@@ -353,7 +479,8 @@ def count_shared_koc(
     qc = _u32_view(qry_codes).to(index.device)
     qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
     qw = _u32_view(qry_weights).to(index.device)
-    counts, weighted = count_shared_koc_kernel(qc, qq, qw, index, n_qry)
+    seg = _segments(qry_index, qry_codes.size, index)
+    counts, weighted = count_shared_koc_kernel(qc, qq, qw, index, n_qry, seg)
     return (counts.cpu().numpy().view(np.uint32),
             weighted.cpu().numpy().view(np.uint64))
 

@@ -16,21 +16,25 @@ start p over W = 2k bases:
 ``sketch_windows_math`` is the plain PyTorch version (int64 tensors: torch
 has no arithmetic on unsigned 32/64-bit tensors, so the canonical compare
 and the right shifts are written sign-safe for W = 32, where the window
-value reaches bit 63). ``sketch_windows_dense`` is the wrapper of the
-hand-written kernels in ``csrc/sketch.cu``: for CUDA tensors it launches
+value reaches bit 63). ``sketch_windows_kept`` is the wrapper of the
+hand-written kernels in ``csrc/sketch.cu``: it returns the kept windows'
+positions and codes in ascending position. For CUDA tensors it launches
 the narrow kernel (drtuple <= 31 bits, int32 codes) or the wide one
-(32..64-bit drtuples, int64 codes), and for CPU tensors it runs the plain
-version.
+(32..64-bit drtuples, int64 codes), whose keep pass and fill pass compact
+the survivors on the card; for CPU tensors it runs the plain version
+(``torch.nonzero`` over the dense codes of
+``sketch_windows_dense_plain``).
 
 Streaming (``_stream_packed``): the host packs each block of symbols to 2
-bits per base (16 per uint32 word), the device computes one code per
-window and compacts survivors with ``torch.nonzero`` (ascending position =
-sequence order), and the host drops survivors whose window reaches past
-the block's real length or covers a BREAK, by position. Narrow and wide
-geometries share this path.
+bits per base (16 per uint32 word), the device returns the kept windows'
+(position, code) pairs, and the host drops survivors whose window reaches
+past the block's real length or covers a BREAK, by position. Narrow and
+wide geometries share this path.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -162,32 +166,59 @@ def unpack2(words: torch.Tensor) -> torch.Tensor:
 def sketch_windows_dense_plain(
     words: torch.Tensor, n_valid: int, shuffled_dim, params: SketchParams
 ) -> torch.Tensor:
-    """Plain version of ``sketch_windows_dense`` (same arguments, same
-    result) on the device of ``words``: unpack, mark every symbol from
-    ``n_valid`` on as BREAK, run the dense window math."""
+    """``dense_dtype(params)`` [n_words*16] per-window codes of packed
+    words, SENTINEL where the window is filtered out or reaches past
+    ``n_valid`` symbols, on the device of ``words``: unpack, mark every
+    symbol from ``n_valid`` on as BREAK, run the dense window math."""
     sym = unpack2(words)
     sym[n_valid:] = BREAK
     return sketch_windows_dense_math(sym, shuffled_dim, params)
 
 
-def sketch_windows_dense(
+@functools.lru_cache(maxsize=64)
+def _round_keys(computed: shufspace.ComputedShuf) -> tuple[int, ...]:
+    """The Feistel round keys of a computed shuffle space (numpy work
+    that a streaming run would otherwise repeat for every block)."""
+    return computed.keys
+
+
+def sketch_windows_kept_plain(
+    words: torch.Tensor, n_valid: int, shuffled_dim, params: SketchParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``sketch_windows_kept`` (same arguments, same
+    result): ``torch.nonzero`` over the dense codes."""
+    dense = sketch_windows_dense_plain(words, n_valid, shuffled_dim, params)
+    pos = torch.nonzero(dense != SENTINEL).squeeze(1)
+    return pos, dense[pos]
+
+
+# windows per block of csrc/sketch.cu (256 threads x 32 window starts);
+# the kernel refuses a launch whose tile count disagrees
+SKETCH_TILE = 8192
+
+
+def sketch_windows_kept(
     words: torch.Tensor,  # int32 [n_words]: pack2 output, bit view
     n_valid: int,
     shuffled_dim,  # ComputedShuf or int32 [16^s] tensor on words.device
     params: SketchParams,
-) -> torch.Tensor:
-    """``dense_dtype(params)`` [n_words*16] per-window sketch codes,
-    SENTINEL where the window is filtered out or reaches past ``n_valid``
-    symbols.
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pos int64 [m], code ``dense_dtype(params)`` [m]): every window of
+    the first ``n_valid`` symbols that the shuffle space keeps, in
+    ascending position.
 
     CUDA tensors launch ``csrc/sketch.cu`` (the narrow kernel for int32
-    codes, the wide one for int64 codes); CPU tensors run the plain
-    version on the unpacked symbols."""
+    codes, the wide one for int64 codes): a keep pass writes a keep mask
+    and a survivor count per block, ``torch.cumsum`` of the counts sizes
+    the output exactly, and a fill pass writes the survivors; the two
+    passes count as one launch. CPU tensors run the plain version."""
     if words.device.type != "cuda":
-        return sketch_windows_dense_plain(words, n_valid, shuffled_dim, params)
+        return sketch_windows_kept_plain(words, n_valid, shuffled_dim, params)
     table, computed = _norm_shuf(shuffled_dim)
     if words.dtype != torch.int32 or words.dim() != 1:
         raise TypeError("words must be a 1-D int32 tensor (pack2 bit view)")
+    if not 0 <= n_valid <= words.numel() * 16:
+        raise ValueError(f"n_valid {n_valid} outside [0, {words.numel() * 16}]")
     words = words.contiguous()
     if table is not None:
         if (
@@ -201,21 +232,36 @@ def sketch_windows_dense(
         table = table.contiguous()
         keys = (0, 0, 0, 0)
     else:
-        keys = computed.keys
+        keys = _round_keys(computed)
+    dev = words.device
     dtype = dense_dtype(params)
+    n_tiles = -(-words.numel() * 16 // SKETCH_TILE)
+    if n_tiles == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),
+                torch.zeros(0, dtype=dtype, device=dev))
     kernel = kernels.sketch_wide_kernel if dtype == torch.int64 else kernels.sketch_kernel
-    out = torch.empty(words.numel() * 16, dtype=dtype, device=words.device)
-    with torch.cuda.device(words.device):
-        kernel.launch(
-            words.data_ptr(), words.numel(), int(n_valid), params.TL,
-            2 * params.half_outctx_len, params.dim_shuf_len - 1,
-            params.undomask, params.rightmask, 4 * params.half_subctx_len,
-            4 * params.drlevel, params.dim_start, params.dim_end,
-            2 * params.half_subctx_len, *keys,
-            table.data_ptr() if table is not None else None,
-            out.data_ptr(), kernels.stream_handle(words.device),
-        )
-    return out
+    mask = torch.empty(n_tiles * 256, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    args = (
+        words.data_ptr(), words.numel(), int(n_valid), params.TL,
+        2 * params.half_outctx_len, params.dim_shuf_len - 1,
+        params.undomask, params.rightmask, 4 * params.half_subctx_len,
+        4 * params.drlevel, params.dim_start, params.dim_end,
+        2 * params.half_subctx_len, *keys,
+        table.data_ptr() if table is not None else None, n_tiles,
+        mask.data_ptr(),
+    )
+    with torch.cuda.device(dev):
+        stream = kernels.stream_handle(dev)
+        kernel.launch(0, *args, counts.data_ptr(), None, None, stream)
+        cum = torch.cumsum(counts, 0)  # int64
+        total = int(cum[-1])
+        pos = torch.empty(total, dtype=torch.int64, device=dev)
+        code = torch.empty(total, dtype=dtype, device=dev)
+        if total:
+            kernel.launch(1, *args, cum.data_ptr(), pos.data_ptr(),
+                          code.data_ptr(), stream, count=False)
+    return pos, code
 
 
 def pack2(symbols: np.ndarray, total: int) -> np.ndarray:
@@ -268,10 +314,10 @@ def _stream_packed(
     block: int,
     device: torch.device,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Packed streaming core: 2-bit-packed uploads, dense window pass,
-    ``torch.nonzero`` compaction on the device, host-side position
-    filtering of break windows. Returns (codes uint64, positions int64)
-    in sequence order."""
+    """Packed streaming core: 2-bit-packed uploads, the kept windows'
+    (position, code) pairs from the device in one fetch, host-side
+    position filtering of break windows. Returns (codes uint64, positions
+    int64) in sequence order."""
     shuf = as_shuf(shuffled_dim, device)
     W = params.TL
     out_codes: list[np.ndarray] = []
@@ -280,11 +326,10 @@ def _stream_packed(
         bucket = min(block, max(4096, 1 << (chunk.size - 1).bit_length()))
         brks = np.flatnonzero(chunk >= BREAK).astype(np.int64)
         words = torch.from_numpy(pack2(chunk, bucket).view(np.int32)).to(device)
-        dense = sketch_windows_dense(words, chunk.size, shuf, params)
-        lpos_dev = torch.nonzero(dense != SENTINEL).squeeze(1)
-        lpos = lpos_dev.cpu().numpy()
+        pos, code = sketch_windows_kept(words, chunk.size, shuf, params)
         # int32 codes are non-negative; int64 codes are uint64 bit patterns
-        codes = dense[lpos_dev].to(torch.int64).cpu().numpy().view(np.uint64)
+        kept = torch.stack([pos, code.to(torch.int64)]).cpu().numpy()
+        lpos, codes = kept[0], kept[1].view(np.uint64)
         # host-side validity: window fully inside the real chunk AND
         # break-free (window at local p covers [p, p+W))
         keep = lpos <= chunk.size - W

@@ -231,3 +231,133 @@ def test_count_shared_weighted_golden_koc(golden7):
         n_qry = formats.read_co_stat(f"{golden7}/{qdir}").infile_num
         want, want_plain = _koc_all(qc, qidx, ab.astype(np.uint32), sp, n_qry)
         assert want_plain.sum() > 0 and (want > want_plain).any()
+
+
+# ------------------------------------------------- bucket directory
+
+
+def _directory_want(keys: np.ndarray, bits: int, width: int):
+    """np.searchsorted of every bucket boundary b << shift (unsigned),
+    shift = max(bit_length(max key) - bits, 0); and that shift."""
+    top = int(keys.max()).bit_length() if keys.size else 0
+    shift = max(top - bits, 0)
+    bounds = [b << shift for b in range(1 << bits)]
+    want = np.searchsorted(keys, np.array(bounds, dtype=keys.dtype))
+    assert width == 64 or all(b < 1 << width for b in bounds)
+    return np.append(want, keys.size).astype(np.int64), shift
+
+
+def _find_via_directory(keys, directory, shift, codes):
+    """The count kernel's lookup, in numpy: one directory read, then a
+    lower bound within the bucket; -1 where the code is absent."""
+    out = np.full(codes.size, -1, np.int64)
+    n_buckets = directory.size - 1
+    for i, c in enumerate(codes.tolist()):
+        b = c >> shift if shift < 64 else 0
+        if b >= n_buckets:
+            continue
+        lo, hi = int(directory[b]), int(directory[b + 1])
+        r = lo + int(np.searchsorted(keys[lo:hi], keys.dtype.type(c)))
+        if r < hi and int(keys[r]) == c:
+            out[i] = r
+    return out
+
+
+def _dir_keys(case):
+    rng = np.random.default_rng(17)
+    if case == "28-bit":
+        k = rng.integers(0, 1 << 28, 5000, dtype=np.uint64)
+        return np.unique(k).astype(np.uint32), None
+    if case == "32-bit":
+        k = np.unique(rng.integers(0, 1 << 32, 5000, dtype=np.uint64))
+        k[-1] = (1 << 32) - 1
+        return np.unique(k).astype(np.uint32), None
+    if case == "64-bit":
+        k = rng.integers(0, 1 << 64, 5000, dtype=np.uint64)
+        k[:3] = [0, (1 << 63) - 1, (1 << 64) - 1]
+        return np.unique(k), None
+    if case == "empty":
+        return np.zeros(0, np.uint32), None
+    if case == "empty buckets":  # keys in two clusters, 2^10 buckets
+        k = np.concatenate([rng.integers(0, 1000, 300),
+                            rng.integers(1 << 30, (1 << 30) + 999, 300)])
+        return np.unique(k.astype(np.uint64)).astype(np.uint32), 10
+    if case == "one bucket":  # every key >= 2^63 and within one top-4-bit bucket
+        k = (np.uint64(1) << np.uint64(63)) + rng.integers(0, 1 << 40, 2000, dtype=np.uint64)
+        return np.unique(k), 4
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize(
+    "case", ["28-bit", "32-bit", "64-bit", "empty", "empty buckets", "one bucket"]
+)
+def test_bucket_directory_matches_numpy(case):
+    """Exact: the directory equals np.searchsorted of every bucket
+    boundary, and a lookup through it finds what a search of the whole
+    index finds (also for query codes above the largest key)."""
+    keys, bits = _dir_keys(case)
+    t = count._key_view(keys)
+    directory, shift = count.bucket_directory(
+        t, int(keys[-1]) if keys.size else 0, bits
+    )
+    if bits is None:  # the default: 8-16 keys a bucket on average
+        bits = (directory.numel() - 1).bit_length() - 1
+        assert keys.size == 0 or 8 <= keys.size >> bits < 16
+    want, want_shift = _directory_want(keys, bits, keys.dtype.itemsize * 8)
+    assert shift == want_shift and directory.dtype == torch.int64
+    np.testing.assert_array_equal(directory.numpy(), want)
+    if case == "one bucket":
+        assert int((np.diff(want) == keys.size).sum()) == 1
+    if case == "empty buckets":
+        assert (np.diff(want) == 0).sum() > (1 << bits) // 2
+    rng = np.random.default_rng(3)
+    top = 1 << (keys.dtype.itemsize * 8)
+    probe = rng.integers(0, top, 500, dtype=np.uint64).astype(keys.dtype)
+    if keys.size:
+        probe = np.concatenate([probe, keys[:: max(keys.size // 300, 1)], keys[-1:]])
+    got = _find_via_directory(keys, directory.numpy(), shift, probe)
+    full = np.searchsorted(keys, probe)
+    hit = np.isin(probe, keys)
+    np.testing.assert_array_equal(got, np.where(hit, full, -1))
+    assert keys.size == 0 or hit.any()
+
+
+def test_device_index_carries_directory():
+    """DeviceIndex.from_arrays builds the directory of its keys."""
+    sp, _, _ = _csr(40, 300, 2)
+    dev = count.DeviceIndex.from_sparse(sp, CPU)
+    directory, shift = count.bucket_directory(dev.uniq, int(sp.uniq_codes[-1]))
+    assert torch.equal(dev.dir, directory) and dev.dir_shift == shift
+    assert int(dev.dir[-1]) == dev.uniq.numel()
+
+
+def test_query_segments_and_grouping():
+    """Segments of ascending query ids (negative ids first, empty
+    queries) equal numpy's; an unsorted order is regrouped stably."""
+    qid = np.array([-1, -1, 0, 0, 0, 2, 2, 4], np.int32)
+    seg = count.query_segments(torch.from_numpy(qid), 6)
+    np.testing.assert_array_equal(
+        seg.numpy(), np.searchsorted(qid, np.arange(7), "left")
+    )
+    np.testing.assert_array_equal(seg.numpy(), [2, 5, 5, 7, 7, 8, 8])
+    shuffled = np.array([2, 0, -1, 4, 0, 2, 0, -1], np.int32)
+    codes = np.arange(8, dtype=np.int32)
+    weights = codes * 10
+    q, c, w = count._grouped(torch.from_numpy(shuffled), torch.from_numpy(codes),
+                             torch.from_numpy(weights))
+    order = np.argsort(shuffled, kind="stable")
+    np.testing.assert_array_equal(q.numpy(), shuffled[order])
+    np.testing.assert_array_equal(c.numpy(), codes[order])
+    np.testing.assert_array_equal(w.numpy(), weights[order])
+    q2, c2, w2 = count._grouped(torch.from_numpy(qid), torch.from_numpy(codes), None)
+    assert q2.numpy().tolist() == qid.tolist() and c2.numpy().tolist() == list(range(8))
+    assert w2 is None
+
+
+@pytest.mark.parametrize("koc,limit", [(False, 58_112), (True, 19_370)])
+def test_count_variant_by_row_size(koc, limit):
+    """The shared-memory row variant up to the row that fits 227 KB."""
+    assert count.count_variant(limit, koc) == "shared"
+    assert count.count_variant(limit + 1, koc) == "global"
+    assert count.count_variant(10_000, koc) == "shared"
+    assert count.count_variant(65_702, koc) == "global"

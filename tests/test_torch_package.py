@@ -147,7 +147,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     fallback."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
-    k = kernels.CudaKernel("sketch", "kssd_sketch_dense", [])
+    k = kernels.CudaKernel("sketch", "kssd_sketch", [])
     with pytest.raises(kernels.KernelBuildError, match="nvcc not found"):
         k.function()
     assert k.launches == 0

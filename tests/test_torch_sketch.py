@@ -2,7 +2,7 @@
 JAX package's, on the CPU: same seeded numpy inputs through both, exact
 equality (everything is integer arithmetic).
 
-On the CPU the kernel wrapper ``sketch_windows_dense`` runs its plain
+On the CPU the kernel wrapper ``sketch_windows_kept`` runs its plain
 PyTorch version; the CUDA kernels themselves are compared with that
 version on the card by chip_smoke.py.
 
@@ -11,6 +11,7 @@ the same functions; at k = 16 the window value fills all 64 bits, which
 the plain version must handle sign-safe in int64.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -148,23 +149,52 @@ def test_wide_dense_math_matches_pallas_interpret(k, s, l):
     assert int((got != sketch.SENTINEL).sum()) >= 50
 
 
+def _jax_kept(words, n_valid, jshuf, jp):
+    """The JAX package's kept windows of packed words as (positions,
+    uint64 codes): its row compaction (sketch_windows_rows, one row of
+    2048 windows per 2048 slots, so nothing overflows) for narrow
+    geometries, its dense window math for wide ones; windows past
+    n_valid dropped, as its packed callers drop them."""
+    W = jp.TL
+    table, computed = jax_sketch._norm_shuf(jshuf)
+    if jp.drtuple_bits <= 31:
+        rows = np.asarray(jax_sketch.sketch_windows_rows(
+            jnp.asarray(words.view(np.uint32)), table, jp, B=2048, C=2048,
+            computed=computed, packed=True,
+        )).ravel()
+        rows = rows[rows != -1]
+        pos, codes = rows >> 32, (rows & 0xFFFFFFFF).astype(np.uint64)
+    else:
+        sym = np.asarray(jax_sketch._unpack2(jnp.asarray(words.view(np.uint32))))
+        dense = _jax_dense(sym, jshuf, jp)
+        pos = np.flatnonzero(dense != jax_sketch.SENTINEL)
+        codes = dense[pos]
+    keep = pos + W <= n_valid
+    return pos[keep].astype(np.int64), codes[keep]
+
+
+def _check_kept(words_np, n_valid, shuf, jshuf, p, jp):
+    """sketch_windows_kept on CPU tensors equals the JAX package's kept
+    windows, position for position; returns the survivor count."""
+    words = torch.from_numpy(words_np.view(np.int32))
+    pos, code = sketch.sketch_windows_kept(words, n_valid, shuf, p)
+    assert pos.dtype == torch.int64 and code.dtype == sketch.dense_dtype(p)
+    want_pos, want_codes = _jax_kept(words_np, n_valid, jshuf, jp)
+    np.testing.assert_array_equal(pos.numpy(), want_pos)
+    np.testing.assert_array_equal(_as_unsigned(code), want_codes)
+    for kern in kernels.ALL:  # CPU: plain version only
+        assert kern.launches == 0
+    return pos.numel()
+
+
 def _check_dense_wrapper(k, s, l, mode):
     """The kernel wrapper on CPU tensors: packed words, windows past
     n_valid dropped, no BREAK reaching the device."""
     p, jp = _params(k, s, l)
     shuf, jshuf = _shufs(p, mode, seed=k + 1)
     n = _n_symbols(l) >> 2
-    n_valid = n - 1000
     sym = np.random.default_rng(k).integers(0, 4, size=n).astype(np.uint8)
-    words = torch.from_numpy(sketch.pack2(sym, n).view(np.int32))
-    got = sketch.sketch_windows_dense(words, n_valid, shuf, p)
-    assert got.dtype == sketch.dense_dtype(p)
-    ref = sym.copy()
-    ref[n_valid:] = BREAK
-    np.testing.assert_array_equal(_as_unsigned(got), _jax_dense(ref, jshuf, jp))
-    assert int((got != sketch.SENTINEL).sum()) > 0
-    for kern in kernels.ALL:  # CPU: plain version only
-        assert kern.launches == 0
+    assert _check_kept(sketch.pack2(sym, n), n - 1000, shuf, jshuf, p, jp) > 0
 
 
 @pytest.mark.parametrize("mode", ["feistel", "table"])
@@ -182,6 +212,52 @@ def test_wide_dense_wrapper_on_cpu_matches_jax(k, s, l, mode):
     """int64 codes, uint64 bits equal to the JAX package's."""
     assert sketch.dense_dtype(_params(k, s, l)[0]) == torch.int64
     _check_dense_wrapper(k, s, l, mode)
+
+
+def _kept_at_zero(k, s, l):
+    """(port, JAX) params whose Feistel space keeps the inner value 0, so
+    that every window of a poly-A run (canonical k-mer 0) is kept: the
+    first .shuf id from 0 whose rank of 0 falls below dim_end."""
+    p, _ = _params(k, s, l)
+    for seed in range(1 << 20):
+        rank = jax_shufspace.feistel(np, np.zeros(1, np.uint32), seed, s)
+        if int(rank[0]) < p.dim_end:
+            return (
+                SketchParams(id=seed, half_ctx_len=k, half_subctx_len=s, drlevel=l),
+                JaxParams(id=seed, half_ctx_len=k, half_subctx_len=s, drlevel=l),
+            )
+    raise AssertionError("no seed keeps the inner value 0")
+
+
+@pytest.mark.parametrize(
+    "k,s,l,mode",
+    [(10, 6, 3, "feistel"), (8, 5, 2, "table"), (12, 6, 3, "feistel"),
+     (16, 6, 1, "table")],
+)
+def test_sketch_windows_kept_homopolymer_all_kept(k, s, l, mode):
+    """A poly-A run of 40,000 bases inside random sequence, in a space
+    that keeps the run's k-mer: every window of the run is kept, in
+    order, equal to the JAX package's kept windows and to its streaming
+    path (sketch_codes_stream)."""
+    if mode == "feistel":
+        p, jp = _kept_at_zero(k, s, l)
+        shuf, jshuf = _shufs(p, mode, seed=0)
+    else:
+        p, jp = _params(k, s, l)
+        table = np.random.default_rng(k).permutation(p.dim_shuf_len).astype(np.int32)
+        j = int(np.flatnonzero(table == 0)[0])
+        table[[0, j]] = table[[j, 0]]  # rank 0 (kept) for the inner value 0
+        shuf, jshuf = sketch.as_shuf(table, CPU), table
+    n, run = 1 << 17, (10_000, 50_000)
+    sym = np.random.default_rng(k + 7).integers(0, 4, size=n).astype(np.uint8)
+    sym[run[0]:run[1]] = 0
+    kept = _check_kept(sketch.pack2(sym, n), n, shuf, jshuf, p, jp)
+    codes, pos = sketch.sketch_codes_stream(sym, shuf, p, block=1 << 16, device=CPU)
+    jcodes, jpos = jax_sketch.sketch_codes_stream(sym, jshuf, jp, block=1 << 16)
+    np.testing.assert_array_equal(codes, jcodes)
+    np.testing.assert_array_equal(pos, jpos)
+    in_run = np.arange(run[0], run[1] - p.TL + 1)
+    assert np.isin(in_run, pos).all() and kept >= in_run.size
 
 
 def test_pack2_unpack2_roundtrip():
