@@ -38,10 +38,13 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               global-atomics variant at the GTDB species-group shape of
               phase 7b (65,702 refs x 8 samples), against the host
               oracle; join
-              (composite) on the GTDB-species-shaped database of phase
-              7b, over the inverted index and over raw DB codes, and
-              join64 on the raw route with keys code << 36 | 7 (its keys
-              equal the 32-bit join's); the stage II device sort
+              (composite) over the inverted index and over raw DB codes,
+              and join64 on the raw route with keys code << 36 | 7 (its
+              keys equal the 32-bit join's): on the GTDB-species-shaped
+              database of phase 7b (timed, with bounds for both join
+              routes), the same with one hot code that every reference
+              and every sample holds, chunk tails (1,000,003 and 7 rows)
+              and a table no DB row matches; the stage II device sort
   4. sketch-heavy main path through kssd_torch's CLI: 64 reference and 16
               query genomes of 5.3 Mb (queries are references with 1-5%
               point mutations); shuffle, dist -r refs, dist queries, dist
@@ -180,13 +183,15 @@ def device_ms(fn, reps: int = 3) -> tuple[float | None, dict[str, float]]:
 
 def device_note(fn) -> str:
     """``device_ms`` of ``fn`` as a log fragment: the total and the three
-    largest parts (names cut to 40 characters)."""
+    largest parts (names cut to 40 characters after the anonymous
+    namespace of the kernel sources)."""
     total, parts = device_ms(fn)
     if total is None:
         return "device time not measured (the profiler saw no device work)"
     top = sorted(parts.items(), key=lambda kv: -kv[1])[:3]
     return f"device {total:.4f} ms [" + "; ".join(
-        f"{k[:40]} {v:.4f}" for k, v in top) + "]"
+        f"{k.replace('void (anonymous namespace)::', '')[:40]} {v:.4f}"
+        for k, v in top) + "]"
 
 
 def max_abs_err(a, b) -> int:
@@ -872,14 +877,16 @@ def phase_count_global(device, sp, qc: np.ndarray, qi: np.ndarray,
 
 
 def phase_join_kernel(device, work: str, res: dict) -> None:
-    """join vs its plain version on the GTDB-shaped database and its
-    samples, over the inverted index and over the raw DB codes; join64 on
-    the raw route with keys code << 36 | 7."""
-    import torch
-
+    """join (CSR and raw routes) and join64 against their plain version,
+    element for element, on (a) the GTDB-shaped database and its samples;
+    (b) the same with one hot code that every reference and every sample
+    holds (65,702 x 8 keys from one CSR row); (c) chunk tails: 1,000,003
+    rows, 7 rows with the directory built by the wrapper, and a table
+    none of whose codes a DB row holds; (d) join64 on every case with
+    keys code << 36 | 7 (half of them >= 2^63), equal to the raw route's
+    keys. Times, device splits and bounds at (a)."""
     from public_kssd_tpu_torch import composite, formats
     from public_kssd_tpu_torch import index as index_mod
-    from public_kssd_tpu_torch.ops import count
 
     t0 = time.perf_counter()
     ref_dir, qry_dir = build_gtdb(f"{work}/gtdb")
@@ -887,65 +894,138 @@ def phase_join_kernel(device, work: str, res: dict) -> None:
     sp = index_mod.build_component_index(codes, ridx, GTDB_REFS)
     qc, qi, qa = formats.read_combco(qry_dir, 0, with_abund=True)
     sq, sqid, sab, n_q = composite._query_table(qc, qi, qa, GTDB_SAMPLES)
+    table = (sq[:n_q], sqid[:n_q], sab[:n_q])
     log(f"[kernels] GTDB-shaped DB: {GTDB_REFS} refs x {GTDB_SKETCH} codes "
         f"({sp.uniq_codes.size} unique), {GTDB_SAMPLES} samples x "
         f"{GTDB_SAMPLE_CODES} codes ({n_q} table entries) "
         f"({time.perf_counter() - t0:.1f} s host)")
     phase_count_global(device, sp, qc, qi, qa)
-    table = [torch.from_numpy(a[:n_q].astype(np.uint32).view(np.int32)).to(device)
-             for a in (sq, sqid, sab)]
-    shift = 16 + GTDB_REFS.bit_length()
-    index = count.DeviceIndex.from_sparse(sp, device)
-    rid = np.searchsorted(ridx[1:], np.arange(codes.size, dtype=np.uint64), "right")
-    routes = {
-        "csr": (index.uniq, index.offsets, index.gids),
-        "raw": (torch.from_numpy(codes.view(np.int32)).to(device), None,
-                torch.from_numpy(rid.astype(np.int32)).to(device)),
+    rid = np.searchsorted(ridx[1:], np.arange(codes.size, dtype=np.uint64),
+                          "right").astype(np.int32)
+    csr = (sp.uniq_codes, sp.offsets.astype(np.int64), sp.gids.astype(np.int32))
+
+    inst, n_keys = join_case(device, res, "(a) GTDB shape", table, (codes, rid), csr)
+    if n_keys["csr"] != n_keys["raw"] or not n_keys["raw"]:
+        raise AssertionError(f"join routes disagree on the hit count: {n_keys}")
+    hit = np.isin(sp.uniq_codes, table[0])
+    postings = int(np.diff(csr[1])[hit].sum())
+    raw_hit = np.isin(codes, table[0])
+    hit_rows = int(raw_hit.sum())
+    bounds = {
+        "csr": join_bound(hit.size, 4, n_q, int(hit.sum()), postings, n_keys["csr"], True),
+        "raw": join_bound(codes.size, 4, n_q, hit_rows, hit_rows, n_keys["raw"], False),
+        "join64": join_bound(codes.size, 8, n_q, hit_rows, hit_rows, n_keys["join64"],
+                             False),
     }
-    n_hits, raw_keys = {}, None
-    for route, (u, offs, gids) in routes.items():
-        args = (u, offs, gids, *table, shift)
+    times = {}
+    for route, args in inst.items():
+        times[route] = (cuda_ms(lambda: composite.join_kernel(*args)),
+                        cuda_ms(lambda: composite.join_torch(*args[:7])))
+        log(f"[kernels] join (a), {route}: kernel {times[route][0]:.4f} ms, plain "
+            f"{times[route][1]:.4f} ms, bound {bounds[route][0]:.4f} ms "
+            f"({bounds[route][1]}); " + device_note(
+                lambda: composite.join_kernel(*args)))
+    res["join"].update(ms=times["csr"][0], plain_ms=times["csr"][1],
+                       bound=bounds["csr"], extra={
+                           "ms_raw": times["raw"][0],
+                           "plain_ms_raw": times["raw"][1],
+                           "bound_raw_ms": bounds["raw"][0],
+                           "bound_raw_by": bounds["raw"][1]})
+    res["join64"].update(ms=times["join64"][0], plain_ms=times["join64"][1],
+                         bound=bounds["join64"])
+    del inst
+
+    # (b) a hot code, held by every reference and every sample: one CSR
+    # row with 65,702 postings x 8 table entries; on the raw route 65,702
+    # rows at the end of the DB
+    cand = np.arange(1 << 27, (1 << 27) + 4096, dtype=np.uint32)
+    h = np.setdiff1d(cand, np.union1d(sp.uniq_codes, table[0]))[0]
+    at, q_at = np.searchsorted(sp.uniq_codes, h), np.searchsorted(table[0], h)
+    refs = np.arange(GTDB_REFS, dtype=np.int32)
+    plen = np.insert(np.diff(csr[1]), at, GTDB_REFS)
+    hot_csr = (np.insert(csr[0], at, h),
+               np.concatenate([[0], np.cumsum(plen)]).astype(np.int64),
+               np.insert(csr[2], csr[1][at], refs))
+    samples = np.arange(GTDB_SAMPLES)
+    hot_table = (np.insert(table[0], q_at, np.full(GTDB_SAMPLES, h, np.uint32)),
+                 np.insert(table[1], q_at, samples.astype(np.int32)),
+                 np.insert(table[2], q_at, (samples + 1).astype(np.uint32)))
+    hot_raw = (np.concatenate([codes, np.full(GTDB_REFS, h, np.uint32)]),
+               np.concatenate([rid, refs]))
+    _, hot_keys = join_case(device, res, "(b) one hot code", hot_table, hot_raw,
+                            hot_csr)
+    want = {r: n + GTDB_REFS * GTDB_SAMPLES for r, n in n_keys.items()}
+    if hot_keys != want:
+        raise AssertionError(f"hot code: {hot_keys} keys, expected {want}")
+
+    # (c) chunk tails, the wrapper's own directory, and no hits at all
+    n = 1_000_003
+    join_case(device, res, f"(c) {n} rows", table, (codes[:n], rid[:n]),
+              (csr[0][:n], csr[1][: n + 1], csr[2]))
+    r0, c0 = int(np.argmax(raw_hit)), int(np.argmax(hit))  # first hit rows
+    _, few = join_case(device, res, "(c) 7 rows from the first hit, directory "
+                       "built by the wrapper", table,
+                       (codes[r0: r0 + 7], rid[r0: r0 + 7]),
+                       (csr[0][c0: c0 + 7], csr[1][c0: c0 + 8], csr[2]),
+                       directory=False)
+    if not all(few.values()):
+        raise AssertionError(f"7 rows from the first hit: {few} keys")
+    miss = ~np.isin(table[0], codes)
+    _, none = join_case(device, res, "(c) a table no DB row matches",
+                        tuple(a[miss] for a in table), (codes, rid), csr)
+    if any(none.values()):
+        raise AssertionError(f"join on a table no row matches: {none} keys")
+
+
+def join_case(device, res: dict, case: str, table, raw, csr, directory=True):
+    """The three join instances on one case, each against join_torch on
+    the same tensors, element for element: the CSR route over ``csr``
+    (uniq, absolute offsets, gids) and the raw route over ``raw`` (codes,
+    genome ids) with the uint32 query ``table`` (codes, ids, abundances),
+    and join64 over the raw rows and the table folded to code << 36 | 7,
+    whose keys must equal the raw route's. ``directory``: pass each
+    table's query_directory, as the main path does, or let the wrapper
+    build it. Returns ({instance: args}, {instance: keys})."""
+    import torch
+
+    from public_kssd_tpu_torch import composite
+
+    def dev(a, view):
+        return torch.from_numpy(np.ascontiguousarray(a).view(view)).to(device)
+
+    tq = [dev(a.astype(np.uint32), np.int32) for a in table]
+    sq64 = fold64(table[0], 7)
+    tq64 = dev(sq64, np.int64)
+    d32 = d64 = None
+    if directory:
+        d32 = composite.query_directory(tq[0], int(table[0][-1]) if table[0].size else 0)
+        d64 = composite.query_directory(tq64, int(sq64[-1]) if sq64.size else 0)
+    shift = 16 + GTDB_REFS.bit_length()
+    g = dev(raw[1], np.int32)
+    inst = {
+        "csr": (dev(csr[0], np.int32), dev(csr[1], np.int64), dev(csr[2], np.int32),
+                *tq, shift, d32),
+        "raw": (dev(raw[0], np.int32), None, g, *tq, shift, d32),
+        "join64": (dev(fold64(raw[0], 7), np.int64), None, g, tq64, *tq[1:], shift,
+                   d64),
+    }
+    keys = {}
+    for route, args in inst.items():
+        name = "join64" if route == "join64" else "join"
         got = composite.join_kernel(*args)
-        want = composite.join_torch(*args)
-        err = max_abs_err(got, want)
-        res["join"]["err"] = max(res["join"]["err"], err)
-        n_hits[route] = got.numel()
-        if route == "raw":
-            raw_keys = got
-        if err or not got.numel() or int(got.min()) < 0:
-            raise AssertionError(f"join kernel != plain on the {route} route: "
+        err = max_abs_err(got, composite.join_torch(*args[:7]))
+        res[name]["err"] = max(res[name]["err"], err)
+        if err or (got.numel() and int(got.min()) < 0):
+            raise AssertionError(f"{name} kernel != plain at {case}, {route} route: "
                                  f"max_abs_err {err}, {got.numel()} keys")
-        ms = cuda_ms(lambda: composite.join_kernel(*args))
-        plain_ms = cuda_ms(lambda: composite.join_torch(*args))
-        log(f"[kernels] join, {route} route ({u.numel()} DB rows x {n_q} query "
-            f"entries): {got.numel()} hit keys equal to plain; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        if route == "csr":
-            hit = np.isin(sp.uniq_codes, sq[:n_q])
-            postings = int(np.diff(sp.offsets.astype(np.int64))[hit].sum())
-            res["join"].update(ms=ms, plain_ms=plain_ms, bound=join_bound(
-                u.numel(), 4, n_q, int(hit.sum()), postings, got.numel(), csr=True))
-    if n_hits["csr"] != n_hits["raw"]:
-        raise AssertionError(f"join routes disagree on the hit count: {n_hits}")
-    u64 = fold64(codes, 7)
-    assert int(u64.max()) >= 1 << 63
-    args = (torch.from_numpy(u64.view(np.int64)).to(device), None, routes["raw"][2],
-            torch.from_numpy(fold64(sq[:n_q], 7).view(np.int64)).to(device),
-            *table[1:], shift)
-    got = composite.join_kernel(*args)
-    err = max_abs_err(got, composite.join_torch(*args))
-    res["join64"]["err"] = err
-    if err or not torch.equal(got, raw_keys):
-        raise AssertionError(f"join64 kernel != plain or != the 32-bit raw keys: "
-                             f"max_abs_err {err}")
-    ms = cuda_ms(lambda: composite.join_kernel(*args))
-    plain_ms = cuda_ms(lambda: composite.join_torch(*args))
-    log(f"[kernels] join64, raw route, keys code << 36 | 7 ({u64.size} DB rows): "
-        f"{got.numel()} hit keys equal to plain and to the 32-bit raw route's; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    hit_rows = int(np.isin(codes, sq[:n_q]).sum())
-    res["join64"].update(ms=ms, plain_ms=plain_ms, bound=join_bound(
-        u64.size, 8, n_q, hit_rows, hit_rows, got.numel(), csr=False))
+        keys[route] = got
+    if not torch.equal(keys["join64"], keys["raw"]):
+        raise AssertionError(f"join64 keys != the 32-bit raw route's at {case}")
+    counts = {r: k.numel() for r, k in keys.items()}
+    log(f"[kernels] join {case}: {raw[0].size} raw rows, {csr[0].size} CSR rows, "
+        f"{table[0].size} table entries; keys {counts}, each instance equal to "
+        "plain element for element, join64 to the raw route")
+    return inst, counts
 
 
 def phase_sketch_heavy(work: str) -> None:
@@ -1419,6 +1499,7 @@ def main() -> int:
             # no one PyTorch call computes a sketch, a sparse count or a
             # join (PERF.md)
             "library_ms": None,
+            **res[k.name].get("extra", {}),  # join: its raw route
         }
         for k in kernels.ALL
     ]}))

@@ -141,6 +141,26 @@ def join_torch(
     )
 
 
+def query_directory(sq: torch.Tensor, max_key: int,
+                    host_sq: torch.Tensor | None = None,
+                    ) -> tuple[torch.Tensor, int]:
+    """The join's bucket directory of the ascending query table ``sq``
+    (int32 / int64 bit views, fewer than 2^31 entries) whose largest
+    key, as an unsigned integer, is ``max_key`` (the caller has it on the
+    host): ``(dir, shift)`` on ``sq``'s device, from
+    ``count_ops.bucket_directory`` with 2^(bit_length(n_q) + 1) buckets,
+    at most the max key's bit length, so 0.25-0.5 table entries a bucket
+    for uniform codes; int32 entries, 16 MB at 1.4M entries (csrc/join.cu
+    says why). ``host_sq``, the same table on the host, lets a small
+    table (up to ``count_ops.HOST_DIRECTORY_KEYS`` entries) build its
+    directory there and upload it, as ``count_ops.DeviceIndex`` does."""
+    bits = min(sq.numel().bit_length() + 1, max_key.bit_length())
+    small = host_sq is not None and sq.numel() <= count_ops.HOST_DIRECTORY_KEYS
+    directory, shift = count_ops.bucket_directory(
+        host_sq if small else sq, max_key, bits)
+    return directory.to(device=sq.device, dtype=torch.int32), shift
+
+
 def join_kernel(
     u: torch.Tensor,
     offs: torch.Tensor | None,
@@ -149,12 +169,18 @@ def join_kernel(
     sqid: torch.Tensor,
     sab: torch.Tensor,
     qid_shift: int,
+    directory: tuple[torch.Tensor, int] | None = None,
 ) -> torch.Tensor:
     """int64 hit keys of one join chunk: ``csrc/join.cu`` for CUDA tensors
-    (a lengths launch, ``torch.cumsum``, an exact allocation, a fill
-    launch; ``kssd_join64`` when ``u`` and ``sq`` are int64 bit views of
+    (a count pass writing a hit bit a row and the keys of every tile of
+    rows, ``torch.cumsum`` over the tiles, an exact allocation, a fill
+    pass; ``kssd_join64`` when ``u`` and ``sq`` are int64 bit views of
     uint64 folded keys, the raw route of ``composite --mesh``),
-    ``join_torch`` for CPU tensors. Same keys in the same order."""
+    ``join_torch`` for CPU tensors. Same keys in the same order.
+
+    ``directory`` is the query table's ``query_directory``; callers that
+    join many chunks against one table build it once. Without it the
+    wrapper builds it, reading back the table's last key."""
     if u.device.type != "cuda":
         return join_torch(u, offs, gids, sq, sqid, sab, qid_shift)
     dev = u.device
@@ -168,6 +194,8 @@ def join_kernel(
             raise TypeError(f"{name} must be a 1-D {dtype} tensor on {dev}")
     if not sq.numel() == sqid.numel() == sab.numel():
         raise ValueError("sq, sqid and sab differ in length")
+    if sq.numel() >= 1 << 31:
+        raise ValueError("the query table must hold fewer than 2^31 entries")
     n_rows = u.numel()
     if offs is not None:
         if (offs.dtype != torch.int64 or offs.device != dev
@@ -180,23 +208,40 @@ def join_kernel(
         return torch.zeros(0, dtype=torch.int64, device=dev)
     u, gids = u.contiguous(), gids.contiguous()
     sq, sqid, sab = sq.contiguous(), sqid.contiguous(), sab.contiguous()
-    lens = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    if directory is None:
+        max_key = int(sq[-1]) % (1 << (8 * sq.element_size())) if sq.numel() else 0
+        directory = query_directory(sq, max_key)
+    qdir, qdir_shift = directory
+    if qdir.dtype != torch.int32 or qdir.dim() != 1 or qdir.device != dev:
+        raise TypeError(f"the directory must be a 1-D int32 tensor on {dev}")
+    qdir = qdir.contiguous()
     kernel = kernels.join64_kernel if wide else kernels.join_kernel
+    tile_rows = kernel.constant("kssd_join_tile_rows")  # DB rows a tile
+    n_tiles = -(-n_rows // tile_rows)
+    hit_bits = torch.empty(n_tiles * tile_rows // 32, dtype=torch.int32,
+                           device=dev)
+    tiles = torch.empty((2, n_tiles), dtype=torch.int64, device=dev)
     args = (
         u.data_ptr(), n_rows,
         *(() if wide else (None if offs is None else offs.data_ptr(),)),
         gids.data_ptr(), sq.data_ptr(), sqid.data_ptr(), sab.data_ptr(),
-        sq.numel(), qid_shift,
+        qdir.data_ptr(), qdir.numel() - 1, qdir_shift, qid_shift, n_tiles,
     )
     with torch.cuda.device(dev):
         stream = kernels.stream_handle(dev)
-        kernel.launch(0, *args, lens.data_ptr(), None, stream)
-        cum = torch.cumsum(lens, 0)
-        total = int(cum[-1])
+        kernel.launch(0, *args, 0, hit_bits.data_ptr(), tiles.data_ptr(),
+                      None, stream)
+        # [hit keys, fill pieces] per tile: two 1-D scans (a scan along
+        # the rows of a [2, n] tensor runs ~10x longer on the card)
+        cum = torch.empty_like(tiles)
+        for row in range(2):
+            torch.cumsum(tiles[row], 0, out=cum[row])
+        total, n_pieces = cum[:, -1].tolist()
         _check_hits(total)
         keys = torch.empty(total, dtype=torch.int64, device=dev)
         if total:
-            kernel.launch(1, *args, cum.data_ptr(), keys.data_ptr(), stream)
+            kernel.launch(1, *args, n_pieces, hit_bits.data_ptr(),
+                          cum.data_ptr(), keys.data_ptr(), stream, count=False)
     return keys
 
 
@@ -228,13 +273,15 @@ def _hits_to_stats(
 
 def _upload_table(qtable, device: torch.device):
     """One component's combined query table (``_query_table``) on
-    ``device`` as int32 tensors, without its padding: the kernel needs no
-    static shape, and a pad code 0xFFFFFFFF could equal a real code."""
+    ``device`` as int32 tensors, without its padding (the kernel needs no
+    static shape, and a pad code 0xFFFFFFFF could equal a real code), and
+    its ``query_directory``: (sq, sqid, sab, directory)."""
     sq_p, sqid_p, sab_p, n_q = qtable
-    return tuple(
-        torch.from_numpy(a[:n_q].astype(np.uint32).view(np.int32)).to(device)
-        for a in (sq_p, sqid_p, sab_p)
-    )
+    host = [torch.from_numpy(a[:n_q].astype(np.uint32).view(np.int32))
+            for a in (sq_p, sqid_p, sab_p)]
+    sq, sqid, sab = (t.to(device) for t in host)
+    max_key = int(sq_p[n_q - 1]) if n_q else 0
+    return sq, sqid, sab, query_directory(sq, max_key, host[0])
 
 
 def _csr_stats_device(components, qtables, n_qry: int, n_ref: int,
@@ -248,13 +295,13 @@ def _csr_stats_device(components, qtables, n_qry: int, n_ref: int,
     hit_parts: list[np.ndarray] = []
     for sp, qtable in zip(components, qtables):
         index = count_ops.DeviceIndex.from_sparse(sp, device)
-        sq, sqid, sab = _upload_table(qtable, index.device)
+        sq, sqid, sab, qdir = _upload_table(qtable, index.device)
         nnz = index.uniq.numel()
         for c0 in range(0, nnz, JOIN_CHUNK):
             c1 = min(c0 + JOIN_CHUNK, nnz)
             keys = join_kernel(
                 index.uniq[c0:c1], index.offsets[c0 : c1 + 1], index.gids,
-                sq, sqid, sab, qid_shift,
+                sq, sqid, sab, qid_shift, qdir,
             )
             hit_parts.append(keys.cpu().numpy())
     return _hits_to_stats(hit_parts, n_qry, n_ref, qid_shift)
@@ -270,14 +317,15 @@ def _batched_stats_device(comps, n_qry: int, n_ref: int,
     _check_key_width(qid_shift, n_qry)
     hit_parts: list[np.ndarray] = []
     for ref_codes, rid_of, qc, qi, qa in comps:
-        sq, sqid, sab = _upload_table(_query_table(qc, qi, qa, n_qry), device)
+        sq, sqid, sab, qdir = _upload_table(_query_table(qc, qi, qa, n_qry),
+                                            device)
         for c0 in range(0, ref_codes.size, JOIN_CHUNK):
             c1 = min(c0 + JOIN_CHUNK, ref_codes.size)
             u = torch.from_numpy(
                 np.ascontiguousarray(ref_codes[c0:c1], "<u4").view(np.int32)
             ).to(device)
             rid = torch.from_numpy(rid_of[c0:c1].astype(np.int32)).to(device)
-            keys = join_kernel(u, None, rid, sq, sqid, sab, qid_shift)
+            keys = join_kernel(u, None, rid, sq, sqid, sab, qid_shift, qdir)
             hit_parts.append(keys.cpu().numpy())
     return _hits_to_stats(hit_parts, n_qry, n_ref, qid_shift)
 
@@ -296,8 +344,8 @@ def _check_key_width(qid_shift: int, n_qry: int) -> None:
         )
 
 
-# DB rows per join call: bounds the per-row int64 lengths buffer and the
-# upload of a raw-code chunk (512 MiB each at 2^26 rows)
+# DB rows per join call: bounds the upload of a raw-code chunk (codes and
+# genome ids, 512 MiB at 2^26 rows)
 JOIN_CHUNK = 1 << 26
 
 

@@ -69,8 +69,9 @@ class CudaKernel:
 
     ``launches`` counts the successful launches through ``launch`` and
     nothing else, so a run can show that its path went through the
-    kernel. A kernel whose work takes two launches (the sketch kernel's
-    keep and fill passes) counts the second with ``count=False``."""
+    kernel. A kernel whose work takes two launches (the keep or count
+    pass and the fill pass of the sketch and join kernels) counts the
+    second with ``count=False``."""
 
     def __init__(self, name: str, entry: str, argtypes: list,
                  source: str | None = None):
@@ -79,6 +80,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.source = os.path.join(CSRC_DIR, f"{source or name}.cu")
         self.launches = 0
+        self._lib = None
         self._fn = None
 
     def so_path(self) -> str:
@@ -107,14 +109,26 @@ class CudaKernel:
         os.replace(tmp, so)
         return so
 
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            self._lib = ctypes.CDLL(self.build())
+        return self._lib
+
     def function(self):
         if self._fn is None:
-            lib = ctypes.CDLL(self.build())
-            fn = getattr(lib, self.entry)
+            fn = getattr(self.library(), self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def constant(self, entry: str) -> int:
+        """An int that the library exports through the C function
+        ``entry`` of no arguments: a size the kernel and its wrapper must
+        agree on, kept in the source alone."""
+        fn = getattr(self.library(), entry)
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        return fn()
 
     def launch(self, *args, count: bool = True) -> None:
         """Launch through the C entry; raise on a nonzero cudaError_t."""
@@ -143,10 +157,11 @@ count_kernel = CudaKernel("count", "kssd_count_shared", _COUNT_ARGS)
 count_koc_kernel = CudaKernel(
     "count_koc", "kssd_count_koc", _COUNT_KOC_ARGS, source="count"
 )
-join_kernel = CudaKernel(
-    "join", "kssd_join",
-    [_I, _P, _I64, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
-)
+# pass, u, n_rows, [offs,] gids, sq, sqid, sab, dir, n_buckets, dir_shift,
+# qid_shift, n_tiles, n_pieces, hit_bits, tile_counts, keys, stream
+_JOIN_ARGS = [_I, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I64,
+              _P, _P, _P, _P]
+join_kernel = CudaKernel("join", "kssd_join", _JOIN_ARGS)
 # the 64-bit-key instances of the mesh paths (folded component keys)
 count64_kernel = CudaKernel(
     "count64", "kssd_count_shared64", _COUNT_ARGS, source="count"
@@ -155,8 +170,7 @@ count_koc64_kernel = CudaKernel(
     "count_koc64", "kssd_count_koc64", _COUNT_KOC_ARGS, source="count"
 )
 join64_kernel = CudaKernel(
-    "join64", "kssd_join64",
-    [_I, _P, _I64, _P, _P, _P, _P, _I64, _I, _P, _P, _P], source="join",
+    "join64", "kssd_join64", _JOIN_ARGS[:3] + _JOIN_ARGS[4:], source="join",
 )
 ALL = (sketch_kernel, sketch_wide_kernel, count_kernel, count_koc_kernel,
        join_kernel, count64_kernel, count_koc64_kernel, join64_kernel)

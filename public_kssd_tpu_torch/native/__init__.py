@@ -1,10 +1,11 @@
 """ctypes bindings for the native host helpers (kssd_host.c).
 
-The C source is the JAX package's ``public_kssd_tpu/native/kssd_host.c``,
-read as a file (nothing of that package is imported). It is compiled on
-demand with the system compiler into ``build/public_kssd_tpu_torch/`` under
-the checkout, under a name keyed by the source's hash and flags, so a
-library built from another source is never loaded. Plain ``-O3`` (no
+The C source is this package's own ``native/kssd_host.c``, a byte-equal
+copy of the JAX package's (tests/test_torch_package.py holds the two
+equal). It is compiled on demand with the system compiler into
+``build/public_kssd_tpu_torch/`` under the checkout, under a name keyed
+by the source's hash and flags, so a library built from another source
+is never loaded. Plain ``-O3`` (no
 ``-march=native``): the library runs on any x86-64 host. If the build
 fails (no toolchain), callers fall back to the pure-python/numpy implementations in
 seqio.py / hashdedup.py — same results, slower host path.
@@ -22,7 +23,8 @@ import numpy as np
 _ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
-_SRC = os.path.join(_ROOT, "public_kssd_tpu", "native", "kssd_host.c")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "kssd_host.c")
 BUILD_DIR = os.path.join(_ROOT, "build", "public_kssd_tpu_torch")
 _CFLAGS = ["-O3", "-shared", "-fPIC"]
 

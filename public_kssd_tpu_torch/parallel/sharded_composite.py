@@ -118,19 +118,25 @@ def species_abundance_sharded(
     qid_shift = 16 + max(int(n_ref).bit_length(), 1)
     composite._check_key_width(qid_shift, n_qry)
 
-    host_table = (sq.view(np.int64), sqid.astype(np.int32),
-                  sab.astype(np.uint32).view(np.int32))
-    tables: dict[torch.device, tuple] = {}  # the query table per device
+    host_table = [torch.from_numpy(a) for a in (
+        sq.view(np.int64), sqid.astype(np.int32),
+        sab.astype(np.uint32).view(np.int32))]
+    max_key = int(sq[-1]) if sq.size else 0
+    # the query table and its directory per device, built once there
+    tables: dict[torch.device, tuple] = {}
     parts: list[torch.Tensor] = []
     for _, r, dev in mesh.local_slots():
         if dev not in tables:
-            tables[dev] = tuple(torch.from_numpy(a).to(dev) for a in host_table)
+            t = tuple(a.to(dev) for a in host_table)
+            tables[dev] = (t, composite.query_directory(t[0], max_key,
+                                                        host_table[0]))
+        table, qdir = tables[dev]
         k, rid = shards[r]
         for c0 in range(0, k.size, composite.JOIN_CHUNK):
             c1 = min(c0 + composite.JOIN_CHUNK, k.size)
             parts.append(composite.join_kernel(
                 torch.from_numpy(k[c0:c1].view(np.int64)).to(dev), None,
-                torch.from_numpy(rid[c0:c1]).to(dev), *tables[dev], qid_shift,
+                torch.from_numpy(rid[c0:c1]).to(dev), *table, qid_shift, qdir,
             ))
     hits = [t.cpu().numpy() for t in parts]
     if parallel.process_count() > 1:

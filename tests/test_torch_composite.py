@@ -150,14 +150,18 @@ def _table(qc, qi, qa, n_qry):
     return tab, t
 
 
-def _join_db(seed, space, n_ref=50, sk=80, n_qry=4):
+def _join_db(seed, space, n_ref=50, sk=80, n_qry=4, hot=False):
     """Random DB + koc queries with planted hits, a duplicated code in
     query 0 and the code 0xFFFFFFFF (the query table's pad value) in a
-    reference and in query 1."""
+    reference and in query 1. ``hot``: one more code that every
+    reference and every query holds (a hot row: n_qry x n_ref keys)."""
     rng = np.random.default_rng(seed)
     ref = [np.unique(rng.integers(0, space, sk, dtype=np.uint64))
            for _ in range(n_ref)]
     ref[3] = np.union1d(ref[3], [(1 << 32) - 1])
+    hot_code = (1 << 31) + 12345
+    if hot:
+        ref = [np.union1d(r, [hot_code]) for r in ref]
     codes = np.concatenate(ref).astype(np.uint32)
     ridx = np.zeros(n_ref + 1, np.uint64)
     np.cumsum([r.size for r in ref], out=ridx[1:])
@@ -170,6 +174,8 @@ def _join_db(seed, space, n_ref=50, sk=80, n_qry=4):
             c = np.concatenate([c, c[:5]])  # duplicates: first one kept
         if q == 1:
             c = np.concatenate([c, [(1 << 32) - 1]])
+        if hot:
+            c = np.concatenate([c, [hot_code]])
         qs.append(c.astype(np.uint32))
     qidx = np.zeros(n_qry + 1, np.uint64)
     np.cumsum([q.size for q in qs], out=qidx[1:])
@@ -184,14 +190,19 @@ def _valid_sorted(buf, n_qry, shift):
     return np.sort(keys[keys < (np.int64(n_qry) << shift)])
 
 
-@pytest.mark.parametrize("seed,space", [(1, 1 << 12), (2, 1 << 32)])
-def test_join_plain_matches_jax_joins(seed, space):
+@pytest.mark.parametrize(
+    "seed,space,hot", [(1, 1 << 12, False), (2, 1 << 32, False), (3, 1 << 32, True)],
+    ids=["1-4096", "2-4294967296", "hot-row"],
+)
+def test_join_plain_matches_jax_joins(seed, space, hot):
     """join_torch's keys equal the valid keys of the JAX package's CSR
-    and raw-code joins (XLA on the CPU backend)."""
+    and raw-code joins (XLA on the CPU backend); the hot row's keys come
+    in the kernel's order: query entry outer, posting inner."""
     import jax.numpy as jnp
 
     n_ref, n_qry = 50, 4
-    codes, ridx, qc, qidx, qa = _join_db(seed, space, n_ref, n_qry=n_qry)
+    codes, ridx, qc, qidx, qa = _join_db(seed, space, n_ref, n_qry=n_qry,
+                                         hot=hot)
     shift = 16 + n_ref.bit_length()
     (sq, sqid, sab, n), (tsq, tsqid, tsab) = _table(qc, qidx, qa, n_qry)
     kw = dict(n_qry=n_qry, n_ref=n_ref, qid_shift=shift, cap=1 << 16)
@@ -221,6 +232,21 @@ def test_join_plain_matches_jax_joins(seed, space):
     )
     np.testing.assert_array_equal(np.sort(got_raw.numpy()), want_raw)
     np.testing.assert_array_equal(want_raw, want)  # a set of codes per ref
+    if hot:  # the hot row's keys: its n_qry entries x its n_ref postings
+        h = np.searchsorted(sp.uniq_codes, (1 << 31) + 12345)
+        assert sp.offsets[h + 1] - sp.offsets[h] == n_ref
+        start = int(np.searchsorted(sq[:n], (1 << 31) + 12345))
+        keys_before = composite.join_torch(
+            torch.from_numpy(sp.uniq_codes[:h].view(np.int32)),
+            torch.from_numpy(sp.offsets[: h + 1].astype(np.int64)),
+            torch.from_numpy(sp.gids.astype(np.int32)), tsq, tsqid, tsab, shift,
+        ).numel()
+        hot_keys = got.numpy()[keys_before: keys_before + n_qry * n_ref]
+        entries = np.arange(start, start + n_qry)
+        gids = sp.gids[sp.offsets[h]: sp.offsets[h + 1]].astype(np.int64)
+        want_hot = ((sqid[entries, None].astype(np.int64) << shift)
+                    | (gids[None, :] << 16) | sab[entries, None].astype(np.int64))
+        np.testing.assert_array_equal(hot_keys, want_hot.ravel())
 
 
 def test_join_wrapper_order_and_limit(monkeypatch):
@@ -239,9 +265,87 @@ def test_join_wrapper_order_and_limit(monkeypatch):
         (1 << 20) | (1 << 16) | 20, (1 << 20) | (4 << 16) | 20,
         (1 << 20) | (2 << 16) | 30, (1 << 20) | (3 << 16) | 30,
     ]
+    directory = composite.query_directory(sq, 7)
+    assert composite.join_kernel(u, offs, gids, sq, sqid, sab, 20,
+                                 directory).tolist() == got
     monkeypatch.setattr(composite, "MAX_CHUNK_HITS", 5)
     with pytest.raises(MemoryError, match="expansion limit"):
         composite.join_kernel(u, offs, gids, sq, sqid, sab, 20)
+
+
+def _directory_table(case):
+    """(unsigned ascending table keys, (dir, shift)) as the join's callers
+    build them: ``_upload_table`` over ``_query_table`` for uint32 codes,
+    ``query_directory`` over folded uint64 keys for the mesh join."""
+    from public_kssd_tpu_torch.ops import count
+
+    if case == "uint64 keys >= 2^63":
+        rng = np.random.default_rng(8)
+        codes = np.sort(rng.integers(0, 1 << 28, 3000, dtype=np.uint64))
+        keys = (np.repeat(codes, 3) << np.uint64(36)) | np.uint64(7)  # 3 queries a code
+        return keys, composite.query_directory(count._key_view(keys), int(keys[-1]))
+    if case == "uint32 codes":
+        _, _, qc, qidx, qa = _join_db(2, 1 << 32)
+        n_qry = 4
+    elif case == "one entry":
+        qc, qidx, qa = (np.array([0x9ABCDEF0], np.uint32), np.array([0, 1], np.uint64),
+                        np.array([7], np.uint16))
+        n_qry = 1
+    else:  # an empty table
+        qc, qidx, qa = (np.zeros(0, np.uint32), np.zeros(3, np.uint64),
+                        np.zeros(0, np.uint16))
+        n_qry = 2
+    qtable = composite._query_table(qc, qidx, qa, n_qry)
+    sq, _, _, directory = composite._upload_table(qtable, CPU)
+    return sq.numpy().view(np.uint32), directory
+
+
+@pytest.mark.parametrize(
+    "case", ["uint32 codes", "uint64 keys >= 2^63", "one entry", "empty table"]
+)
+def test_query_directory_matches_numpy(case):
+    """Exact: the join's directory has 2^(bit_length(n_q) + 1) buckets (at
+    most the largest key's bit length), equals np.searchsorted of every bucket
+    boundary b << shift, and holds every table key's run of equal
+    entries inside its bucket dir[b] .. dir[b + 1]."""
+    from test_torch_count import _directory_want
+
+    keys, (directory, shift) = _directory_table(case)
+    d = directory.numpy()
+    top = int(keys[-1]).bit_length() if keys.size else 0
+    bits = min(keys.size.bit_length() + 1, top)
+    want, want_shift = _directory_want(keys, bits, keys.dtype.itemsize * 8)
+    assert shift == want_shift and directory.dtype == torch.int32
+    np.testing.assert_array_equal(d, want)
+    if case == "uint32 codes":
+        # 0.25-0.5 entries a bucket
+        assert keys[-1] == 0xFFFFFFFF and keys.size >> (bits - 2) == 1
+    if case == "uint64 keys >= 2^63":
+        assert (keys >= np.uint64(1 << 63)).any() and (keys < np.uint64(1 << 63)).any()
+    b = np.array([int(k) >> shift if shift < 64 else 0 for k in keys.tolist()],
+                 np.int64)
+    assert (d[b] <= np.searchsorted(keys, keys, "left")).all()
+    assert (np.searchsorted(keys, keys, "right") <= d[b + 1]).all()
+
+
+@pytest.mark.parametrize("n_q", [1000, 70_000])
+def test_query_directory_small_table_builds_on_host(monkeypatch, n_q):
+    """A table of up to HOST_DIRECTORY_KEYS entries builds its directory
+    from the host copy, a larger one from the device table; either way it
+    is the same directory, on the device table's device, int32."""
+    from public_kssd_tpu_torch.ops import count
+
+    keys = np.sort(np.random.default_rng(9).integers(0, 1 << 32, n_q, dtype=np.uint64))
+    sq, host_sq = count._u32_view(keys), count._u32_view(keys)
+    seen = []
+    build = count.bucket_directory
+    monkeypatch.setattr(count, "bucket_directory",
+                        lambda t, *a: seen.append(t) or build(t, *a))
+    directory, shift = composite.query_directory(sq, int(keys[-1]), host_sq)
+    assert seen[0] is (host_sq if n_q <= count.HOST_DIRECTORY_KEYS else sq)
+    want, want_shift = composite.query_directory(sq, int(keys[-1]))
+    assert shift == want_shift and directory.dtype == torch.int32
+    assert directory.device == sq.device and torch.equal(directory, want)
 
 
 def test_hit_key_width_guard():

@@ -25,7 +25,7 @@ VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup", "ops/stats",
 # copies that differ on purpose: the top-level definitions named here
 # differ, every other definition the two files share must be identical
 DIFFERING = {
-    # builds the JAX package's C source into build/public_kssd_tpu_torch/
+    # builds its own copy of the C source into build/public_kssd_tpu_torch/
     # under a source-hash name, never loading the committed .so
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS"},
@@ -77,6 +77,16 @@ def test_host_module_copy_is_verbatim(mod):
     orig = _read(JAX_PKG, mod).splitlines()
     port = _read(PORT_PKG, mod).replace("public_kssd_tpu_torch", "public_kssd_tpu")
     assert port.splitlines() == orig
+
+
+@pytest.mark.parametrize("path", ["native/kssd_host.c"])
+def test_host_source_copy_is_byte_equal(path):
+    """Non-Python sources the port builds from are its own byte-equal
+    copies of the JAX package's."""
+    with open(os.path.join(JAX_PKG, path), "rb") as f:
+        orig = f.read()
+    with open(os.path.join(PORT_PKG, path), "rb") as f:
+        assert f.read() == orig and orig
 
 
 def _top_level(src):
@@ -182,12 +192,45 @@ def test_kernel_sources_and_build_dir():
         assert "cudaGetLastError()" in src
 
 
-def test_native_helper_builds_from_jax_source():
+def test_native_helper_builds_from_its_own_source():
     from public_kssd_tpu_torch import native
 
-    assert native._SRC == os.path.join(JAX_PKG, "native", "kssd_host.c")
+    assert native._SRC == os.path.join(PORT_PKG, "native", "kssd_host.c")
     lib = native.get_lib()
     assert lib is not None
     assert os.path.dirname(native._so_path()) == os.path.join(
         REPO, "build", "public_kssd_tpu_torch"
     )
+
+
+def _reads_jax_package(src: str) -> list[int]:
+    """Lines of calls that take a string naming a path under
+    public_kssd_tpu/ (os.path.join(..., "public_kssd_tpu", ...),
+    open("public_kssd_tpu/...")); comments and docstrings are not calls."""
+    lines = []
+    for node in ast.walk(ast.parse(src)):
+        if not isinstance(node, ast.Call):
+            continue
+        for arg in node.args:
+            if (isinstance(arg, ast.Constant) and isinstance(arg.value, str)
+                    and "public_kssd_tpu" in arg.value.split("/")):
+                lines.append(node.lineno)
+    return lines
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    assert _reads_jax_package(
+        'import os\n"""cites public_kssd_tpu/native/kssd_host.c"""\n'
+        'p = os.path.join(r, "public_kssd_tpu", "native", "kssd_host.c")\n'
+        'open("public_kssd_tpu/x.c")\n'
+    ) == [3, 4]
+    found = {}
+    for dirpath, _, files in os.walk(PORT_PKG):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    lines = _reads_jax_package(f.read())
+                if lines:
+                    found[os.path.relpath(path, REPO)] = lines
+    assert not found, found

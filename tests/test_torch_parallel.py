@@ -270,17 +270,27 @@ def test_ordered_keeps_unsigned_order():
     assert o32.tolist() == [0, 1 << 31, 0xFFFFFFFF]
 
 
-@pytest.mark.parametrize("seed", [4, 5])
-def test_join64_plain_equals_32bit_join(seed):
+@pytest.mark.parametrize("seed,hot", [(4, False), (5, False), (6, True)],
+                         ids=["4", "5", "hot-row"])
+def test_join64_plain_equals_32bit_join(seed, hot):
     """join_torch on uint64 keys (code << 36 | 7, bit 63 set for half the
     codes) gives the keys the 32-bit join gives on the codes: the fold is
-    monotone and injective, so matches and their order are the same."""
+    monotone and injective, so matches and their order are the same.
+    ``hot``: one code >= 2^27 (a key >= 2^63) in a row of each of the 300
+    references and in the table for each of the 5 queries."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 1 << 28, 5000, dtype=np.uint64)
     rid = rng.integers(0, 300, codes.size).astype(np.int32)
     q = np.sort(np.concatenate([rng.choice(codes, 800),
                                 rng.integers(0, 1 << 28, 800, dtype=np.uint64)]))
     sqid = rng.integers(0, 5, q.size).astype(np.int32)
+    if hot:
+        h = np.uint64((1 << 27) + 777)
+        codes = np.concatenate([codes, np.full(300, h)])
+        rid = np.concatenate([rid, np.arange(300, dtype=np.int32)])
+        at = np.searchsorted(q, h)
+        q = np.insert(q, at, np.full(5, h))
+        sqid = np.insert(sqid, at, np.arange(5, dtype=np.int32))
     sab = rng.integers(1, 1 << 16, q.size).astype(np.int32)
     fold = lambda c: (c << np.uint64(36)) | np.uint64(7)  # noqa: E731
     shift = 16 + 9
@@ -296,6 +306,10 @@ def test_join64_plain_equals_32bit_join(seed):
     )
     assert want.numel() > 0 and (fold(codes) >= np.uint64(1 << 63)).any()
     assert torch.equal(got, want)
+    if hot:  # the last 300 rows: each the 5 queries' keys, in table order
+        tail = got[-300 * 5:].reshape(300, 5).numpy()
+        assert (tail >> shift == np.arange(5)).all()
+        assert ((tail >> 16) & 0x1FF == np.arange(300)[:, None]).all()
 
 
 # --------------------------------------------------------- mesh composite
