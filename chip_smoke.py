@@ -89,12 +89,30 @@ Phases, each of which raises on failure (the exit code is then nonzero):
      8d. dist --shard 0:2, --shard 1:2 and --merge-shards on phase 4's
               references: the merged combco files byte-equal to phase
               4's unsharded stage I
+  9. host commands and --profile, on phase 4's sketches:
+     9a. in one fresh process, as a user runs them: dist -L L3K10
+              --profile DIR on two raw references: combco files
+              byte-equal to the run without the flag, and the trace names
+              sketch_keep_kernel and sketch_fill_kernel; dist -r ref
+              --keepskf --profile DIR on the card: distance.out and
+              sharedk_ct.dat byte-equal to phase 4's, and the trace names
+              a count kernel
+     9b. set -u of the references (pan.0 = their distinct codes), set -i
+              and set -s of the queries against it (together each query's
+              codes); the intersected queries searched on the card give
+              phase 4's sharedk_ct.dat byte for byte, the subtracted ones
+              all zeros; set -P prints the 64 reference names
+     9c. reverse of the queries to k-mers, written as fastas of one record
+              per k-mer and sketched again on the card: each query's codes
+     9d. primer (44 primes) and convert krona / qiime / cami on a seeded
+              report of 40 references: their line counts
 
 Launch counts are reset before phase 4 and read after phase 5 (sketch,
 count), reset before phase 6 and read after it (sketch_wide), reset
 before phase 7 and read after it (count_koc, join on each route), and
-reset before phase 8 and read after it (count64, count_koc64, join64). The
-output ends with a JSON line of per-kernel results, the card's name and
+reset before phase 8 and read after it (count64, count_koc64, join64).
+Phase 9 resets them again and logs its own launches; they are not in the
+JSON line of per-kernel results. The output ends with a JSON line of per-kernel results, the card's name and
 power limit from nvidia-smi, and the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Everything the run writes goes under build/chip_smoke/ in the checkout
@@ -230,17 +248,27 @@ def run_cli_out(*argv: str) -> tuple[float, str]:
     return dt, buf.getvalue()
 
 
+# the wall that kssd_torch logs for a stage, as a message or a stderr line:
+# "[kssd_torch INFO] search: 16 x 64 pairs in 0.007s ..."
+STAGE_WALL = re.compile(r"(?:^|\] )(stage I|search|composite): .*? in ([0-9.]+)s", re.M)
+
+
 class StageLog(logging.Handler):
     """Keeps the stage timers that kssd_torch logs ("stage I: ... [name:
-    1.234s; ...]", "search: ... [...]") of the last call."""
+    1.234s; ...]", "search: ... [...]") and the stage walls of the last
+    call."""
 
     def __init__(self):
         super().__init__()
         self.stages: dict[str, dict[str, float]] = {}
+        self.walls: dict[str, float] = {}
 
     def emit(self, record):
         msg = record.getMessage()
         head = msg.split(":", 1)[0]
+        wall = STAGE_WALL.match(msg)
+        if wall:
+            self.walls[head] = float(wall.group(2))
         if head in ("stage I", "search", "composite") and "[" in msg:
             body = msg[msg.rindex("[") + 1:]
             self.stages[head] = {
@@ -1413,6 +1441,240 @@ def phase_sharded_cli(work: str, wide_stages: dict[str, float],
         f"phase 4's stage I")
 
 
+def trace_kernels(trace_dir: str) -> tuple[int, int, set[str]]:
+    """The one torch.profiler trace that ``dist --profile`` wrote into
+    ``trace_dir``: its size in bytes, its event count and the names of its
+    CUDA kernel events."""
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"{trace_dir} holds {files}, not one trace")
+    path = f"{trace_dir}/{files[0]}"
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"}
+    return os.path.getsize(path), len(events), names
+
+
+def codes_by_genome(co_dir: str) -> dict[str, list[np.ndarray]]:
+    """Base name of each genome -> its sorted codes, one array per
+    component."""
+    from public_kssd_tpu_torch import formats
+
+    stat = formats.read_co_stat(co_dir)
+    comps = [formats.read_combco(co_dir, c) for c in range(stat.comp_num)]
+    return {
+        os.path.basename(name).split(".")[0]: [
+            np.sort(codes[int(idx[g]):int(idx[g + 1])]) for codes, idx in comps
+        ]
+        for g, name in enumerate(stat.names)
+    }
+
+
+# runs kssd_torch commands one after another in a fresh process; prints
+# the seconds to import the package and reach the card, then each
+# command's wall, as a JSON list on its last line
+FRESH_CLI = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from public_kssd_tpu_torch import cli
+torch.zeros(1, device="cuda")
+walls = [time.perf_counter() - t0]
+for argv in json.loads(sys.argv[1]):
+    t = time.perf_counter()
+    if cli.main(argv) != 0:
+        sys.exit(f"kssd_torch {argv} failed")
+    walls.append(time.perf_counter() - t)
+print(json.dumps(walls))
+"""
+
+
+def run_cli_fresh(*commands: list[str]) -> tuple[list[float], list[float]]:
+    """The kssd_torch ``commands`` in one fresh process; returns the
+    process's start-up and command walls (``FRESH_CLI``) and the stage
+    walls that the commands logged (``STAGE_WALL``), in order."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", FRESH_CLI, json.dumps(commands)],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"kssd_torch {commands} failed: {r.stderr[-2000:]}")
+    stages = [float(w) for _, w in STAGE_WALL.findall(r.stderr)]
+    return json.loads(r.stdout.splitlines()[-1]), stages
+
+
+def phase_profile(work: str) -> None:
+    """9a: dist --profile on the card, for stage I and for the search, in
+    a fresh process as a user runs it (torch.profiler drops GPU events
+    from a session that follows much unprofiled CUDA work in the same
+    process, as every session after phase 3's would): outputs byte-equal
+    to the same commands without the flag, and the traces name the
+    sketch and the count kernels."""
+    from public_kssd_tpu_torch import utils
+
+    refs = sorted(os.listdir(f"{work}/refs"))[:2]
+    sketch = ["dist", "-L", f"{work}/L3K10.shuf"] + [f"{work}/refs/{r}" for r in refs]
+    search = ["dist", "-r", f"{work}/ref", "--keepskf", f"{work}/qry"]
+    stages = StageLog()
+    utils.log.addHandler(stages)
+    try:
+        k_wall = run_cli(*sketch, "-o", f"{work}/k_noprof")
+        k_plain = stages.walls["stage I"]
+        s_wall = run_cli(*search, "-o", f"{work}/out_noprof")
+        s_plain = stages.walls["search"]
+    finally:
+        utils.log.removeHandler(stages)
+    walls, (k_prof, s_prof) = run_cli_fresh(
+        sketch + ["-o", f"{work}/k_prof", "--profile", f"{work}/trace_k"],
+        search + ["-o", f"{work}/out_prof", "--profile", f"{work}/trace_s"],
+    )
+    for name in sorted(os.listdir(f"{work}/k_noprof")):
+        if name.startswith("combco."):
+            same_bytes(f"{work}/k_noprof/{name}", f"{work}/k_prof/{name}")
+    for name in ("distance.out", "sharedk_ct.dat"):
+        same_bytes(f"{work}/out/{name}", f"{work}/out_prof/{name}")
+    traces = {}
+    for tag, kernels in (("k", ("sketch_keep_kernel", "sketch_fill_kernel")),
+                         ("s", ("count_row_kernel|count_global_kernel",))):
+        size, n_events, names = trace_kernels(f"{work}/trace_{tag}")
+        for kernel in kernels:
+            if not any(re.search(kernel, n) for n in names):
+                raise AssertionError(f"trace_{tag} names no {kernel}: {sorted(names)}")
+        traces[tag] = f"{size} B, {n_events} events, {len(names)} CUDA kernel names"
+    log(f"[host] dist --profile in a fresh process: start-up (import, first CUDA "
+        f"call) {walls[0]:.3f} s; stage I of 2 refs {walls[1]:.3f} s (stage "
+        f"{k_prof:.3f} s; not profiled, in this process: {k_wall:.3f} s, stage "
+        f"{k_plain:.3f} s), combco files byte-equal to the run without the flag, "
+        f"trace {traces['k']} with sketch_keep_kernel and sketch_fill_kernel; "
+        f"search {walls[2]:.3f} s (stage {s_prof:.3f} s; not profiled {s_wall:.3f} "
+        f"s, stage {s_plain:.3f} s), distance.out and sharedk_ct.dat byte-equal to "
+        f"phase 4's, trace {traces['s']} with a count kernel")
+
+
+def phase_set(work: str) -> None:
+    """9b: set -u / -i / -s / -P on phase 4's sketches, and the
+    intersected and subtracted queries searched on the card."""
+    from public_kssd_tpu_torch import formats, kernels
+
+    ref, qry, pan = f"{work}/ref", f"{work}/qry", f"{work}/pan"
+    t_union = run_cli("set", "-u", "-o", pan, ref)
+    stat = formats.read_co_stat(ref)
+    for c in range(stat.comp_num):
+        if not np.array_equal(formats.read_pan(pan, c),
+                              np.unique(formats.read_combco(ref, c)[0])):
+            raise AssertionError(f"pan.{c} is not the distinct codes of combco.{c}")
+    t_int = run_cli("set", "-i", pan, "-o", f"{work}/q_int", qry)
+    t_sub = run_cli("set", "-s", pan, "-o", f"{work}/q_sub", qry)
+    whole, inter, sub = (codes_by_genome(f"{work}/{d}") for d in ("qry", "q_int", "q_sub"))
+    n_int = n_sub = 0
+    for name, comps in whole.items():
+        for c, codes in enumerate(comps):
+            if not np.array_equal(np.sort(np.concatenate([inter[name][c], sub[name][c]])),
+                                  codes):
+                raise AssertionError(f"{name}: -i and -s codes do not make up its sketch")
+            n_int += inter[name][c].size
+            n_sub += sub[name][c].size
+    before = kernels.count_kernel.launches
+    t_search = {}
+    for d in ("q_int", "q_sub"):
+        t_search[d] = run_cli("dist", "-r", ref, "-o", f"{work}/out_{d}", "--keepskf",
+                              f"{work}/{d}")
+    same_bytes(f"{work}/out/sharedk_ct.dat", f"{work}/out_q_int/sharedk_ct.dat")
+    if np.fromfile(f"{work}/out_q_sub/sharedk_ct.dat", "<u4").any():
+        raise AssertionError("a subtracted query shares codes with a reference")
+    launches = kernels.count_kernel.launches - before
+    if not launches:
+        raise AssertionError("the searches of 9b did not launch the count kernel")
+    t_names, names = run_cli_out("set", "-P", ref)
+    if names.splitlines() != stat.names or len(stat.names) != N_REF_GENOMES:
+        raise AssertionError("set -P does not print the reference names")
+    log(f"[host] set -u of {stat.infile_num} sketches ({stat.all_ctx_ct} codes) "
+        f"{t_union:.3f} s; -i {t_int:.3f} s and -s {t_sub:.3f} s of "
+        f"{len(whole)} queries ({n_int} codes shared, {n_sub} not): they make up "
+        f"each query; search of q_int {t_search['q_int']:.3f} s gives "
+        f"sharedk_ct.dat byte-equal to phase 4's, of q_sub {t_search['q_sub']:.3f} "
+        f"s all zeros ({launches} count launches); set -P {t_names:.3f} s")
+
+
+def phase_reverse(work: str) -> None:
+    """9c: reverse phase 4's queries to k-mers and sketch them again on
+    the card: the same codes."""
+    from public_kssd_tpu_torch import kernels
+
+    shuf = f"{work}/L3K10.shuf"
+    t_rev = run_cli("reverse", "-L", shuf, "-o", f"{work}/rev", f"{work}/qry")
+    os.makedirs(f"{work}/rev_fa")
+    n_kmers = 0
+    for name in sorted(os.listdir(f"{work}/rev")):
+        with open(f"{work}/rev/{name}") as f:
+            kmers = f.read().split()
+        n_kmers += len(kmers)
+        with open(f"{work}/rev_fa/{name.split('.')[0]}.fa", "w") as f:
+            f.write("".join(f">{i}\n{s}\n" for i, s in enumerate(kmers)))
+    before = kernels.sketch_kernel.launches
+    t_sketch = run_cli("dist", "-L", shuf, "-o", f"{work}/again", f"{work}/rev_fa")
+    launches = kernels.sketch_kernel.launches - before
+    want, got = codes_by_genome(f"{work}/qry"), codes_by_genome(f"{work}/again")
+    if sorted(want) != sorted(got) or len(want) != N_QRY_GENOMES:
+        raise AssertionError(f"resketched genomes {sorted(got)} != {sorted(want)}")
+    for name in want:
+        for a, b in zip(want[name], got[name]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the resketched k-mers give other codes")
+    if not launches:
+        raise AssertionError("the resketch of 9c did not launch the sketch kernel")
+    log(f"[host] reverse of {N_QRY_GENOMES} queries to {n_kmers} k-mers "
+        f"{t_rev:.3f} s; their resketch on the card ({launches} sketch launches) "
+        f"{t_sketch:.3f} s gives each query's codes")
+
+
+def phase_convert(work: str) -> None:
+    """9d: primer, and convert krona / qiime / cami on a seeded report of
+    40 references that all pass the converters' thresholds."""
+    t, out = run_cli_out("primer")
+    primes = [int(x) for x in out.splitlines() if x.isdigit()]
+    if len(primes) != 44 or primes[0] != 251:
+        raise AssertionError(f"primer printed {len(primes)} primes")
+    rng = np.random.default_rng(SEED)
+    d = f"{work}/convert"
+    os.makedirs(d)
+    n = 40
+    avg = rng.uniform(4, 8, n)
+    with open(f"{d}/report.tsv", "w") as f:
+        f.write("".join(
+            f"/data/sampleA.fq.gz\t{1000 + i}_GCA_{i:06d}.1\t{rng.integers(10, 40)}\t"
+            f"{avg[i] + 0.3:.4f}\t{avg[i]:.4f}\t{rng.integers(2, 4)}.0\t"
+            f"{avg[i] + 0.5:.4f}\n" for i in range(n)))
+    with open(f"{d}/psid2tax.tsv", "w") as f:
+        f.write("".join(f"{1000 + i}\td__Bacteria\tp__P{i % 3}\ts__Species {i}\n"
+                        for i in range(n)))
+    with open(f"{d}/psid2ncbi.tsv", "w") as f:
+        f.write("".join(f"{1000 + i}\t{5000 + i}\n" for i in range(n)))
+    ranks = ("species", "genus", "family", "order", "class", "phylum", "superkingdom")
+    with open(f"{d}/nodes.tsv", "w") as f:
+        for i in range(n):
+            chain = [5000 + i] + [6000 + 10 * j + i % 2 for j in range(6)] + [1]
+            f.write("".join(f"{node}\t{ranks[lvl]}\t{chain[lvl + 1]}\tname_{node}\n"
+                            for lvl, node in enumerate(chain[:-1])))
+    _, out = run_cli_out("convert", "krona", "-t", f"{d}/psid2tax.tsv", "-o",
+                         f"{d}/krona", f"{d}/report.tsv")
+    krona = out.strip()
+    with open(krona) as f:
+        lines = f.read().splitlines()
+    with open(f"{d}/krona2.tsv", "w") as f:
+        f.write("\n".join(reversed(lines)) + "\n")
+    run_cli("convert", "qiime", "-o", f"{d}/qiime", krona, f"{d}/krona2.tsv")
+    with open(f"{d}/qiime/otu.tsv") as f:
+        n_otu = len(f.read().splitlines())
+    _, cami = run_cli_out("convert", "cami", "-t", f"{d}/psid2ncbi.tsv", "-n",
+                          f"{d}/nodes.tsv", "-o", f"{d}/cami", f"{d}/report.tsv")
+    # 7 header lines, 40 species and two nodes at each of the 6 other ranks
+    if (len(lines), n_otu, len(cami.splitlines())) != (n, n + 1, 7 + n + 6 * 2):
+        raise AssertionError(f"convert line counts: krona {len(lines)}, otu.tsv "
+                             f"{n_otu}, cami {len(cami.splitlines())}")
+    log(f"[host] primer: 44 primes ({t:.3f} s); convert krona {len(lines)} lines, "
+        f"qiime otu.tsv {n_otu}, cami {len(cami.splitlines())}")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
@@ -1460,6 +1722,15 @@ def main() -> int:
         f"path: {sharded}")
     for name in ("count64", "count_koc64", "join64"):
         launches[name] = sharded[name]
+    for k in kernels.ALL:
+        k.launches = 0
+    t9 = time.perf_counter()
+    phase_profile(work)
+    phase_set(work)
+    phase_reverse(work)
+    phase_convert(work)
+    log(f"[host] phase 9 in {time.perf_counter() - t9:.1f} s; launches (not in the "
+        f"kernels line): {({k.name: k.launches for k in kernels.ALL})}")
     for name, n in list(launches.items()) + [
         ("count (wide path)", wide["count"]),
         ("sketch (abundance path)", abundance["sketch"]),

@@ -1,10 +1,14 @@
 """Command-line interface of the PyTorch port: the reference kssd's
-``shuffle``, ``dist`` and ``composite`` subcommands, with the arguments of
-``public_kssd_tpu.cli`` plus ``--device``.
+subcommands, with the arguments of ``public_kssd_tpu.cli`` plus
+``--device`` where a command runs device work.
 
     kssd_torch shuffle   -k -s -l -o                 (command_shuffle.c:33-41)
     kssd_torch dist      sketch / index / search     (command_dist_wrapper.c:41-65)
+    kssd_torch set       -u -q -s -i -c -g -P -o     (command_set.c:35-47)
+    kssd_torch reverse   -L -o -b                    (command_reverse.c:35-42)
     kssd_torch composite -q [-b] / -i / -s / -d      (command_composite.c)
+    kssd_torch convert   composite report -> Krona / QIIME / CAMI (src/*.pl)
+    kssd_torch primer    (hidden) the largest prime below 2^i, i = 8..51
 
 Dispatch logic mirrors dist_dispatch (command_dist.c:53-192):
 
@@ -17,15 +21,16 @@ Dispatch logic mirrors dist_dispatch (command_dist.c:53-192):
 plus the sharded paths of ``public_kssd_tpu.cli``: ``dist --mesh DPxREF
 [--shard-strategy genome|code]`` (search over a device mesh),
 ``composite --mesh N``, and ``dist --shard I:N`` / ``--merge-shards``
-(stage I in shards, merged).
+(stage I in shards, merged); ``dist --profile DIR`` writes a
+torch.profiler trace of the whole command into DIR.
 
 ``--device cuda`` (the default) runs the window pass, the counting (with
 ``--koc-out`` also the abundance-weighted counting) and the composite
 join in the hand-written kernels (csrc/) and raises when no card is
 visible; ``--device cpu`` runs their plain PyTorch versions. ``--mesh``
 on cuda takes the first visible cards and exits when there are fewer; on
-cpu it repeats the CPU. ``set``, ``reverse``, ``convert`` and
-``--profile`` are not ported yet (ROADMAP.md) and exit with an error.
+cpu it repeats the CPU. ``set``, ``reverse``, ``convert`` and ``primer``
+are host work in both packages and take no ``--device``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ import argparse
 import os
 import sys
 
-_NOT_PORTED = ("set", "reverse", "convert")
 _DEVICE_HELP = (
     "torch device of the kernels: cuda runs the hand-written kernels, "
     "cpu their plain PyTorch versions [cuda]"
@@ -113,10 +117,51 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["genome", "code"],
                    help="--mesh DB sharding: 'genome' blocks (column "
                    "outputs, default) or 'code' ranges (summed partials)")
-    # accepted so that kssd_tpu command lines parse, then rejected: not
-    # ported yet (ROADMAP.md)
-    p.add_argument("--profile", default="", help=argparse.SUPPRESS)
+    p.add_argument("--profile", default="", metavar="DIR",
+                   help="write a torch.profiler trace (CPU, and CUDA on "
+                   "--device cuda) to DIR")
     p.add_argument("remaining", nargs="*", help="query files/dirs")
+
+    p = sub.add_parser("set", help="sketch union/intersection/subtraction")
+    p.add_argument("-u", dest="union", action="store_true", help="union")
+    p.add_argument("-q", dest="uniq_union", action="store_true", help="uniq union")
+    p.add_argument("-s", dest="subtract", default="", help="subtract pan-sketch")
+    p.add_argument("-i", dest="intersect", default="", help="intersect pan-sketch")
+    p.add_argument("-c", dest="combin_pan", action="store_true", help="combine pans")
+    p.add_argument("-g", dest="grouping", default="", help="grouping tsv")
+    p.add_argument("-P", dest="print_names", action="store_true", help="print genome names")
+    p.add_argument("-p", type=int, default=1, help="threads (accepted)")
+    p.add_argument("-o", dest="outdir", default="./", help="output dir")
+    p.add_argument("remaining", nargs="*", help="input sketch dir(s)")
+
+    p = sub.add_parser("reverse", help="reverse sketch to k-mer set")
+    p.add_argument("-L", dest="shuf", required=True, help=".shuf file")
+    p.add_argument("-o", dest="outdir", default=".", help="output dir")
+    p.add_argument("-p", type=int, default=1)
+    p.add_argument("-b", dest="byreads", action="store_true", help="by reads")
+    p.add_argument("--component-sz", type=int, default=7)
+    p.add_argument("remaining", nargs="*", help="co dir")
+
+    sub.add_parser("primer", help=argparse.SUPPRESS)  # hidden, like the
+    # reference: prints the largest prime below 2^i for i in 8..51
+    # (global_wrapper.c:107-109, find_lgst_primer_2pow global_basic.c:364-388)
+
+    p = sub.add_parser("convert", help="composite output -> Krona/QIIME/CAMI"
+                       " (ports of src/*.pl, see postproc.py)")
+    p.add_argument("mode", choices=[
+        "krona", "qiime", "cami",
+        # the nine small src/*.pl utilities (postproc.py)
+        "extract-taxid", "ac2psid", "csv-subset", "ncbi-ftp",
+        "kmer-finder", "species2psid", "species2ncbi", "abv-meta",
+        "psid2ncbitax",
+    ])
+    p.add_argument("-t", dest="tax", default="",
+                   help="psid->taxonomy tsv (krona) / psid->ncbi tsv (cami)")
+    p.add_argument("-n", dest="nodes", default="",
+                   help="taxid,rank,parent,name tsv (cami)")
+    p.add_argument("-o", dest="outdir", default="./convert_out")
+    p.add_argument("inputs", nargs="+",
+                   help="composite report (krona/cami) or Krona tables (qiime)")
 
     p = sub.add_parser("composite", help="metagenomic composition analysis")
     p.add_argument("-r", dest="refdir", default="", help="reference sketch dir")
@@ -141,25 +186,47 @@ def main(argv: list[str] | None = None) -> int:
                    "(parallel/sharded_composite.py)")
     p.add_argument("remaining", nargs="*")
 
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not yet ported")
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        print(
-            f"kssd_torch {argv[0]}: not yet ported to public_kssd_tpu_torch "
-            "(ROADMAP.md); use kssd_tpu",
-            file=sys.stderr,
-        )
-        return 2
     args = parser.parse_args(argv)
     if args.command == "shuffle":
         return _cmd_shuffle(args)
+    if args.command == "dist":
+        return _cmd_dist(args)
+    if args.command == "set":
+        from public_kssd_tpu_torch import setops
+
+        return setops.cmd_set(args)
+    if args.command == "reverse":
+        from public_kssd_tpu_torch import reverse
+
+        return reverse.cmd_reverse(args)
     if args.command == "composite":
         from public_kssd_tpu_torch import composite
 
         return composite.cmd_composite(args)
-    return _cmd_dist(args)
+    if args.command == "convert":
+        from public_kssd_tpu_torch import postproc
+
+        return postproc.cmd_convert(args)
+    return _cmd_primer()
+
+
+def _cmd_primer() -> int:
+    from public_kssd_tpu_torch.config import (
+        DEFAULT_CTX_SPC_USE_L, LD_FCTR, largest_prime_below_pow2,
+    )
+
+    # byte-identical to the reference (find_lgst_primer_2pow's
+    # diagnostics, global_basic.c:372, then the dispatch printf,
+    # global_wrapper.c:109)
+    for w in range(8, 52):
+        n = 1 << w
+        hshsz = int(float(n) * DEFAULT_CTX_SPC_USE_L / LD_FCTR)
+        print(f"w={w}\tspace_sz={n}\thashsize={hshsz}"
+              f"\tkmerlimt={int(hshsz * LD_FCTR)}")
+        p = largest_prime_below_pow2(w)
+        print(f"nearest prime={p}")
+        print(p)
+    return 0
 
 
 def _cmd_shuffle(args) -> int:
@@ -225,15 +292,6 @@ def _load_params(args):
     return params, shufspace.ComputedShuf(params.id, params.half_subctx_len)
 
 
-def _reject_unported(command: str, args, flags: tuple[str, ...]) -> None:
-    for flag in flags:
-        if getattr(args, flag.lstrip("-").replace("-", "_")):
-            sys.exit(
-                f"kssd_torch {command}: {flag} is not yet ported to "
-                "public_kssd_tpu_torch (ROADMAP.md); use kssd_tpu"
-            )
-
-
 def _make_mesh(command: str, spec: str, dp: int, ref: int, device):
     """``parallel.make_mesh`` for a CLI flag; exits with the reason when
     the shape is invalid or too few devices are visible."""
@@ -246,13 +304,18 @@ def _make_mesh(command: str, spec: str, dp: int, ref: int, device):
 
 
 def _cmd_dist(args) -> int:
-    from public_kssd_tpu_torch import (
-        index, infiles, pipeline, resolve_device, search,
-    )
+    from public_kssd_tpu_torch import resolve_device
+    from public_kssd_tpu_torch.utils import profile_trace
+
+    device = resolve_device(args.device)
+    with profile_trace(args.profile or None, device):
+        return _cmd_dist_inner(args, device)
+
+
+def _cmd_dist_inner(args, device) -> int:
+    from public_kssd_tpu_torch import index, infiles, pipeline, search
     from public_kssd_tpu_torch.ops import stats as stats_ops
 
-    _reject_unported("dist", args, ("--profile",))
-    device = resolve_device(args.device)
     index_device = device if args.device_index else None
     opts = pipeline.SketchOptions(
         abundance=args.abundance,

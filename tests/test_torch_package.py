@@ -20,7 +20,7 @@ PORT_PKG = os.path.join(REPO, "public_kssd_tpu_torch")
 
 # host modules copied line for line; only the package name differs
 VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup", "ops/stats",
-            "combine"]
+            "combine", "setops", "reverse", "postproc"]
 
 # copies that differ on purpose: the top-level definitions named here
 # differ, every other definition the two files share must be identical
@@ -29,7 +29,8 @@ DIFFERING = {
     # under a source-hash name, never loading the committed .so
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS"},
-    # logger renamed; profile_trace (jax.profiler) is not ported
+    # logger renamed; profile_trace records a torch.profiler trace (CPU +
+    # CUDA) instead of jax.profiler
     "utils": {"log", "profile_trace"},
     # adds feistel_torch, the int64 tensor twin of feistel
     "shufspace": {"feistel_torch", "_M32"},

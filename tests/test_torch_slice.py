@@ -6,6 +6,7 @@ at 32- and 36-bit codes split into 16 components."""
 
 import contextlib
 import gzip
+import json
 import os
 import shutil
 
@@ -20,7 +21,9 @@ from public_kssd_tpu import formats as jax_formats
 from public_kssd_tpu import pipeline as jax_pipeline
 from public_kssd_tpu import shufspace as jax_shufspace
 from public_kssd_tpu.config import SketchParams as JaxParams
-from public_kssd_tpu_torch import cli, formats, index, pipeline, search, shufspace
+from public_kssd_tpu_torch import (
+    cli, formats, index, pipeline, search, shufspace, utils,
+)
 from public_kssd_tpu_torch.config import SketchParams
 from public_kssd_tpu_torch.ops import stats as stats_ops
 
@@ -310,34 +313,64 @@ def test_cli_tutorial_counts_device_equals_host(tutorial):
             assert a[q].argmax() == r and a[q, r] > a[q].sum() // 2
 
 
-@pytest.mark.parametrize(
-    "argv",
-    [
-        ["set", "-u", "x"],
-        ["reverse", "-L", "x.shuf", "y"],
-        ["convert", "krona", "x"],
-    ],
-)
-def test_cli_unported_subcommands_exit_2(argv, capsys):
-    assert cli.main(argv) == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
-# --profile is not ported; the sharded flags are, and refuse bad specs
-_REJECTED = {"--profile": "not yet ported", "--mesh": "expected DPxREF",
-             "--shard": "expected I:N", "--merge-shards": "manifest"}
+# the sharded flags refuse bad specs
+_REJECTED = {"--mesh": "expected DPxREF", "--shard": "expected I:N",
+             "--merge-shards": "manifest"}
 
 
 @pytest.mark.parametrize(
-    "flag", [["--mesh", "2"], ["--shard", "0"], ["--merge-shards"],
-             ["--profile", "trace"]],
+    "flag", [["--mesh", "2"], ["--shard", "0"], ["--merge-shards"]],
 )
-def test_cli_unported_dist_flags_rejected(tutorial, flag):
+def test_cli_bad_sharding_flags_rejected(tutorial, flag):
     with pytest.raises((SystemExit, FileNotFoundError),
                        match=_REJECTED[flag[0]]):
         cli.main(["dist", "-r", f"{tutorial}/torch/ref", "-o",
                   f"{tutorial}/torch/out_x", f"{tutorial}/torch/qry",
                   "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize(
+    "step,outputs",
+    [
+        ("stage1", ["qry/combco.0", "qry/combco.index.0", "qry/cofiles.stat"]),
+        ("search", ["out/distance.out"]),
+    ],
+)
+def test_cli_profile_writes_a_trace(tutorial, step, outputs):
+    """dist --profile DIR writes a torch.profiler trace of the command
+    into DIR (CPU events on --device cpu) and changes no output."""
+    d = f"{tutorial}/torch"
+    trace = f"{d}/trace_{step}"
+    if step == "stage1":
+        argv = ["-L", f"{d}/F.shuf", "-o", f"{d}/prof_qry", f"{tutorial}/queries"]
+    else:
+        argv = ["-r", f"{d}/ref", "-o", f"{d}/prof_out", f"{d}/qry"]
+    assert cli.main(["dist", *argv, "--profile", trace, "--device", "cpu"]) == 0
+    for rel in outputs:
+        assert_files_equal(f"{d}/{rel}", f"{d}/prof_{rel}", rel)
+    files = os.listdir(trace)
+    assert files and all(f.endswith(".pt.trace.json") for f in files)
+    with open(f"{trace}/{files[0]}") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_profile_trace_without_logdir_records_nothing(tmp_path):
+    for logdir in (None, ""):
+        with _cd(tmp_path), utils.profile_trace(logdir, CPU):
+            assert not torch.autograd._profiler_enabled()
+            torch.ones(3).sum()
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_primer_matches_kssd_tpu(capsys):
+    outs = []
+    for main in (cli.main, jax_cli.main):
+        assert main(["primer"]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    primes = [int(x) for x in outs[0].split("\n") if x.isdigit()]
+    assert len(primes) == 44 and primes[0] == 251
 
 
 def test_cli_koc_out_matches_kssd_tpu(tutorial, golden7):
