@@ -51,7 +51,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               -r ref qry; distance.out byte-equal to the --cpu-count run
   5. search-heavy main path: the 10,000-ref synthetic DB of phase 3 as a
               stage I directory, indexed and searched by 1,000 queries
-              through the CLI; distance.out byte-equal to --cpu-count
+              through the CLI; distance.out byte-equal to --cpu-count and
+              to dist -p 1 (the print on one thread); the print stage
+              logged with its thread count (dist -p's default: every CPU
+              the process may use)
   6. wide main path at L3K12 (k=12 s=6 l=3: 36-bit codes, 256
               components): 16 reference and 4 query genomes of 5.3 Mb
               through the CLI (stage II with --no-dense-index);
@@ -987,24 +990,32 @@ def phase_sketch_heavy(work: str) -> None:
 
 def phase_search_heavy(work: str, synth) -> None:
     from bench_torch import run as bench
+    from public_kssd_tpu_torch.ops import stats as stats_ops
 
     ref_codes, qry = synth
     qry_rows = qry.reshape(SYNTH_QRYS, SYNTH_SKETCH)
     sref, sqry, t_index = bench.search_dirs(work, ref_codes, qry_rows, "cuda")
-    t_search = run_cli("dist", "-r", sref, "-o", f"{work}/sout", sqry)
+    t_search, stages = bench.run_cli("dist", "-r", sref, "-o", f"{work}/sout", sqry)
     t_cpu = run_cli("dist", "-r", sref, "-o", f"{work}/sout_cpu", "--cpu-count", sqry)
     size = same_bytes(f"{work}/sout/distance.out", f"{work}/sout_cpu/distance.out")
+    t_one, one = bench.run_cli("dist", "-r", sref, "-o", f"{work}/sout_p1", "-p", "1",
+                               sqry)
+    same_bytes(f"{work}/sout/distance.out", f"{work}/sout_p1/distance.out")
     t = time.perf_counter()
     bad = bench.check_search(f"{work}/sout/distance.out", ref_codes, qry_rows, SEED)
     if bad:
         raise AssertionError(f"distance.out differs from the plain search: {bad}")
     pairs = SYNTH_QRYS * SYNTH_REFS
     log(f"[search-heavy] {SYNTH_QRYS} x {SYNTH_REFS}: distance.out {size} B "
-        f"byte-equal to --cpu-count, and to the plain count and formula "
-        f"(bench_torch/oracle.py, {time.perf_counter() - t:.1f} s); index "
+        f"byte-equal to --cpu-count and to -p 1, and to the plain count and "
+        f"formula (bench_torch/oracle.py, {time.perf_counter() - t:.1f} s); index "
         f"{t_index:.3f} s; search {pairs / t_search:.1f} pairs/s ({t_search:.3f} s, "
         f"CLI wall incl. index load and distance.out print); --cpu-count "
         f"{t_cpu:.3f} s")
+    log(f"[search-heavy] print stage {stages['print']:.3f} s on "
+        f"{stats_ops.print_threads(0)} threads (dist -p default: the CPUs of "
+        f"sched_getaffinity; os.cpu_count() {os.cpu_count()}); with -p 1: print "
+        f"{one['print']:.3f} s, wall {t_one:.3f} s")
 
 
 def phase_wide(work: str) -> dict[str, float]:

@@ -66,7 +66,9 @@ def main(argv: list[str] | None = None) -> int:
 
     p = sub.add_parser("dist", help="sketching and distance estimation")
     p.add_argument("-k", type=int, default=8, help="half k-mer length [8]")
-    p.add_argument("-p", type=int, default=0, help="threads (accepted, unused)")
+    p.add_argument("-p", type=int, default=0,
+                   help="threads formatting distance.out [0 = every CPU the "
+                   "process may use]; the output does not depend on it")
     p.add_argument("-l", "--list", dest="fpath", default="", help="query list file")
     p.add_argument("-L", dest="dr", default="2", help=".shuf file or dim-reduction level [2]")
     p.add_argument("-m", dest="mmry", type=float, default=0,
@@ -307,6 +309,8 @@ def _cmd_dist(args) -> int:
     from public_kssd_tpu_torch import resolve_device
     from public_kssd_tpu_torch.utils import profile_trace
 
+    if args.p < 0:
+        sys.exit(f"dist -p: threads must be >= 0 (0 = every usable CPU), got {args.p}")
     device = resolve_device(args.device)
     with profile_trace(args.profile or None, device):
         return _cmd_dist_inner(args, device)
@@ -416,6 +420,7 @@ def _cmd_dist_inner(args, device) -> int:
                 mem_gb=args.mmry,
                 koc=args.koc_out,
                 shard_strategy=args.shard_strategy,
+                threads=args.p,
             )
             return 0
         if qry_is_co:

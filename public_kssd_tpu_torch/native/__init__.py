@@ -1,11 +1,12 @@
-"""ctypes bindings for the native host helpers (kssd_host.c).
+"""ctypes bindings for the native host helpers (kssd_host.c, kssd_print.c).
 
-The C source is this package's own ``native/kssd_host.c``, a byte-equal
-copy of the JAX package's (tests/test_torch_package.py holds the two
-equal). It is compiled on demand with the system compiler into
-``build/public_kssd_tpu_torch/`` under the checkout, under a name keyed
-by the source's hash and flags, so a library built from another source
-is never loaded. Plain ``-O3`` (no
+The C sources are this package's own: ``native/kssd_host.c``, a
+byte-equal copy of the JAX package's (tests/test_torch_package.py holds
+the two equal), and ``native/kssd_print.c``, the distance.out block
+formatter. Both are compiled on demand with the system compiler into one
+library in ``build/public_kssd_tpu_torch/`` under the checkout, under a
+name keyed by the sources' hash and flags, so a library built from other
+sources is never loaded. Plain ``-O3`` (no
 ``-march=native``): the library runs on any x86-64 host. If the build
 fails (no toolchain), callers fall back to the pure-python/numpy implementations in
 seqio.py / hashdedup.py — same results, slower host path.
@@ -25,6 +26,7 @@ _ROOT = os.path.dirname(
 )
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "kssd_host.c")
+_PRINT_SRC = os.path.join(_HERE, "kssd_print.c")
 BUILD_DIR = os.path.join(_ROOT, "build", "public_kssd_tpu_torch")
 _CFLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -34,8 +36,9 @@ _tried = False
 
 def _so_path() -> str:
     h = hashlib.sha256(" ".join(_CFLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in (_SRC, _PRINT_SRC):
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"kssd_host-{h.hexdigest()[:16]}.so")
 
 
@@ -44,7 +47,7 @@ def _build(so: str) -> bool:
     (test workers) never load a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ["cc", *_CFLAGS, _SRC, "-o", tmp, "-lm"]
+    cmd = ["cc", *_CFLAGS, _SRC, _PRINT_SRC, "-o", tmp, "-lm"]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
     except (OSError, subprocess.CalledProcessError):
@@ -59,7 +62,7 @@ def get_lib():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.isfile(_SRC):
+    if not (os.path.isfile(_SRC) and os.path.isfile(_PRINT_SRC)):
         return None
     so = _so_path()
     if not os.path.exists(so) and not _build(so):
@@ -92,12 +95,14 @@ def get_lib():
     lib.kssd_pack2.restype = None
     lib.kssd_pack2.argtypes = [u8p, ctypes.c_size_t, u32p, ctypes.c_size_t]
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-    lib.kssd_dist_row.restype = ctypes.c_size_t
-    lib.kssd_dist_row.argtypes = [
-        ctypes.c_char_p, ctypes.c_char_p, u8p, i64p, u32p, u32p,
-        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+    lib.kssd_dist_rows_buf.restype = ctypes.c_int64
+    lib.kssd_dist_rows_buf.argtypes = [
+        u8p, i64p, u32p, u8p, i64p, u32p, u32p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        u8p, ctypes.c_int64,
     ]
     _lib = lib
     return _lib
@@ -170,14 +175,29 @@ def dedup_u32_slot_order(codes: np.ndarray, hashsize: int) -> np.ndarray | None:
     return out[:n].copy()
 
 
-def dist_row(
-    path: str,
-    qname: str,
-    names_blob: np.ndarray,
-    name_off: np.ndarray,
+class Names:
+    """Names as one blob of NUL-terminated UTF-8 strings and each one's
+    byte offset: the form the native formatter reads them in."""
+
+    def __init__(self, names: list[str]):
+        enc = [n.encode() + b"\0" for n in names]
+        self.blob = np.frombuffer(b"".join(enc) or b"\0", np.uint8)
+        self.offsets = np.zeros(len(enc), np.int64)
+        np.cumsum([len(e) for e in enc[:-1]], out=self.offsets[1:])
+        self.longest = max((len(e) - 1 for e in enc), default=0)
+
+
+def dist_rows_buf(
+    qnames: Names,
+    qry_sizes: np.ndarray,
+    rnames: Names,
     ref_sizes: np.ndarray,
-    counts_row: np.ndarray,
-    y_size: int,
+    rows: np.ndarray,
+    q0: int,
+    r0: int,
+    r1: int,
+    rid_sel: np.ndarray | None,
+    sel_off: np.ndarray | None,
     kmerlen: int,
     dim_rd_len: int,
     cmprsn_num: float,
@@ -185,31 +205,47 @@ def dist_row(
     pfield: int,
     correction: int,
     dthreshold: float,
-    rid_sel: np.ndarray | None = None,
-) -> int | None:
-    """Append one query's distance.out lines at C printf speed
-    (reference-exact output_ctrl semantics). None if the lib is absent."""
+    buf: np.ndarray,
+) -> tuple[np.ndarray, int] | None:
+    """Formats the distance.out lines (reference-exact output_ctrl
+    semantics, glibc printf) of query rows ``q0 .. q0 + len(rows)`` into
+    ``buf``: ref ids ``[r0, r1)`` of each row, or, with ``rid_sel``, each
+    query's selection ``rid_sel[sel_off[i]:sel_off[i + 1]]`` in order.
+    ``rows`` holds those queries' shared counts, uint32 [rows, n_ref].
+    Returns the buffer holding the text (``buf``, or a larger one when
+    ``buf`` was too small) and the bytes used; None if the lib is absent.
+    Safe to call from many threads at once: it holds no Python state."""
     lib = get_lib()
     if lib is None:
         return None
-    sel_ptr, n_sel = None, 0
+    n_ref = ref_sizes.size
+    q1 = q0 + rows.shape[0]
+    if rows.dtype != np.uint32 or rows.ndim != 2 or rows.shape[1] != n_ref:
+        raise ValueError(f"rows: uint32 [n, {n_ref}] expected, got "
+                         f"{rows.dtype} {rows.shape}")
+    if not (0 <= q0 <= q1 <= min(qry_sizes.size, qnames.offsets.size)
+            and rnames.offsets.size == n_ref and 0 <= r0 <= r1 <= n_ref):
+        raise ValueError(f"rows [{q0}, {q1}) x refs [{r0}, {r1}) out of range")
+    sel_ptr = off_ptr = None
     if rid_sel is not None:
-        rid_sel = np.ascontiguousarray(rid_sel, dtype=np.int64)
-        sel_ptr = rid_sel.ctypes.data
-        n_sel = rid_sel.size
-    n = lib.kssd_dist_row(
-        path.encode(), qname.encode(),
-        np.ascontiguousarray(names_blob, np.uint8),
-        np.ascontiguousarray(name_off, np.int64),
-        np.ascontiguousarray(ref_sizes, np.uint32),
-        np.ascontiguousarray(counts_row, np.uint32),
-        counts_row.size, sel_ptr, n_sel,
-        y_size, kmerlen, dim_rd_len, cmprsn_num,
-        metric, pfield, correction, dthreshold,
-    )
-    if n == ctypes.c_size_t(-1).value:
-        return None
-    return n
+        if (sel_off.size != q1 - q0 + 1 or sel_off[0] != 0
+                or sel_off[-1] != rid_sel.size or np.any(np.diff(sel_off) < 0)
+                or (rid_sel.size and not 0 <= rid_sel.min() <= rid_sel.max() < n_ref)):
+            raise ValueError("rid_sel / sel_off do not describe the rows")
+        rid_sel = np.ascontiguousarray(rid_sel, np.int64)
+        sel_off = np.ascontiguousarray(sel_off, np.int64)
+        sel_ptr, off_ptr = rid_sel.ctypes.data, sel_off.ctypes.data
+    rows = np.ascontiguousarray(rows)
+    while True:
+        n = lib.kssd_dist_rows_buf(
+            qnames.blob, qnames.offsets, qry_sizes, rnames.blob,
+            rnames.offsets, ref_sizes, rows, n_ref, q0, q1, r0, r1,
+            sel_ptr, off_ptr, kmerlen, dim_rd_len, cmprsn_num,
+            metric, pfield, correction, dthreshold, buf, buf.size,
+        )
+        if n <= buf.size:
+            return buf, n
+        buf = np.empty(n, np.uint8)
 
 
 def pack2(symbols: np.ndarray, total: int) -> np.ndarray | None:

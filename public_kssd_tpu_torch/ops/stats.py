@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import struct
 from enum import IntEnum
 
@@ -155,6 +156,109 @@ def format_header(opts: OutputOptions) -> str:
     return "".join(cols) + "\n"
 
 
+def print_threads(threads: int = 0) -> int:
+    """The threads that format distance.out (``dist -p``): ``threads``,
+    or every CPU this process may run on when it is 0."""
+    if threads < 0:
+        raise ValueError(f"threads must be >= 0 (0 = every usable CPU), got {threads}")
+    return threads or len(os.sched_getaffinity(0))
+
+
+# The native writer's formatted blocks in flight hold at most about this
+# many bytes (estimated from the longest names), whatever the thread
+# count, and it cuts at least this many blocks for each thread, so that
+# no thread is left with a long tail.
+PRINT_BUFFER_BYTES = 256 << 20
+BLOCKS_PER_THREAD = 8
+# a line's bytes beside its two names, rounded up: four uint32s and up
+# to eight printf'd doubles of the values a count can give; a block
+# whose values print longer (a huge corrected m) grows its buffer
+LINE_BYTES = 160
+
+
+def print_blocks(n_qry: int, row_items: int, threads: int, line_bytes: int,
+                 split: bool):
+    """Cuts the print into blocks, in file order: ``(q0, q1, r0, r1)``,
+    items ``[r0, r1)`` of each query row in ``[q0, q1)``, each row
+    holding ``row_items`` items. A block holds about the lines that keep
+    2 x ``threads`` blocks of ``line_bytes`` a line within
+    PRINT_BUFFER_BYTES, and no more than BLOCKS_PER_THREAD blocks a
+    thread allow. Whole rows go together while they fit; a longer row is
+    cut into item ranges when ``split`` (a -N row is never cut: its
+    items are known only once it is selected)."""
+    lines = max(1, min(PRINT_BUFFER_BYTES // (2 * threads * line_bytes),
+                       -(-n_qry * row_items // (BLOCKS_PER_THREAD * threads))))
+    if row_items > lines and split:
+        return [(q, q + 1, r, min(r + lines, row_items))
+                for q in range(n_qry) for r in range(0, row_items, lines)]
+    k = max(1, lines // max(row_items, 1))
+    return [(q, min(q + k, n_qry), 0, row_items) for q in range(0, n_qry, k)]
+
+
+def _write_native(path, counts, ref_sizes, qry_sizes, ref_names, qry_names,
+                  kmerlen, dim_rd_len, opts, threads):
+    """distance.out through the native block formatter
+    (native/kssd_print.c): blocks of lines format on ``threads`` threads
+    (the ctypes call drops the GIL) into per-block buffers, and this
+    thread writes them in query order after the header, while the later
+    blocks format. At most 2 x ``threads`` blocks are in flight."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from public_kssd_tpu_torch import native
+
+    n_qry, n_ref = counts.shape
+    cmprsn_num = float(n_ref * n_qry)
+    qnames, rnames = native.Names(qry_names), native.Names(ref_names)
+    ref_sz = np.ascontiguousarray(ref_sizes, np.uint32)
+    qry_sz = np.ascontiguousarray(qry_sizes, np.uint32)
+    row_items = min(opts.top_n, n_ref) if opts.top_n else n_ref
+    line_bytes = qnames.longest + rnames.longest + LINE_BYTES
+    blocks = print_blocks(n_qry, row_items, threads, line_bytes,
+                          split=not opts.top_n)
+
+    def fmt(block, buf):
+        q0, q1, r0, r1 = block
+        # a -m memmap's rows are read here, by the worker, as they print
+        rows = np.ascontiguousarray(counts[q0:q1], np.uint32)
+        sel = sel_off = None
+        if opts.top_n:
+            picks = [np.asarray(_top_n_rids(rows[i], ref_sizes, int(qry_sizes[q]),
+                                            opts), np.int64)
+                     for i, q in enumerate(range(q0, q1))]
+            sel = np.concatenate(picks) if picks else np.zeros(0, np.int64)
+            sel_off = np.zeros(len(picks) + 1, np.int64)
+            np.cumsum([p.size for p in picks], out=sel_off[1:])
+        need = (q1 - q0) * (r1 - r0) * line_bytes
+        if buf is None or buf.size < need:
+            buf = np.empty(need, np.uint8)
+        return native.dist_rows_buf(
+            qnames, qry_sz, rnames, ref_sz, rows, q0, r0, r1, sel, sel_off,
+            kmerlen, dim_rd_len, cmprsn_num, int(opts.metric),
+            int(opts.fields), int(opts.correction), float(opts.max_dist), buf,
+        )
+
+    with open(path, "wb") as f, ThreadPoolExecutor(threads) as pool:
+        f.write(format_header(opts).encode())
+        pending, free = deque(), [None] * (2 * threads)
+
+        def write_first():
+            buf, n = pending.popleft().result()
+            f.write(memoryview(buf)[:n])
+            free.append(buf)
+
+        try:
+            for block in blocks:
+                if not free:
+                    write_first()
+                pending.append(pool.submit(fmt, block, free.pop()))
+            while pending:
+                write_first()
+        finally:
+            for fut in pending:
+                fut.cancel()
+
+
 def write_distance_out(
     path: str,
     counts: np.ndarray,  # uint32 [n_qry, n_ref]
@@ -165,52 +269,31 @@ def write_distance_out(
     kmerlen: int,
     dim_rd_len: int,
     opts: OutputOptions,
-) -> None:
-    """Emit distance.out (dist_print_nobin, command_dist.c:1161-1250).
+    threads: int = 0,
+) -> int:
+    """Emit distance.out (dist_print_nobin, command_dist.c:1161-1250);
+    returns the threads that formatted it.
 
-    The per-line formatting runs through the NATIVE writer
-    (kssd_dist_row) when available — same libm/printf as the reference
-    build, so it is reference-exact by construction AND removes the one
-    serial Python loop left at GTDB scale (2.5M+ lines per full print).
-    Python fallback (and KSSD_TPU_NATIVE_PRINT=off) keeps identical
-    output; tests compare the two writers line for line.
+    The lines are formatted by the NATIVE block formatter
+    (native/kssd_print.c) when available — same libm/printf as the
+    reference build, so it is reference-exact by construction — on
+    ``threads`` threads (``dist -p``; 0 = every CPU this process may
+    use), and written in query order: the bytes do not depend on the
+    thread count. ``counts`` may be a ``np.memmap`` (``-m``). Python
+    fallback (and KSSD_TPU_NATIVE_PRINT=off, and the FULL table) keeps
+    identical output; tests compare the writers byte for byte.
     """
-    import os as _os
-
+    threads = print_threads(threads)
     n_qry, n_ref = counts.shape
     cmprsn_num = n_ref * n_qry
     full = opts.fields == Fields.FULL
-    if not full and _os.environ.get("KSSD_TPU_NATIVE_PRINT", "auto") != "off":
+    if not full and os.environ.get("KSSD_TPU_NATIVE_PRINT", "auto") != "off":
         from public_kssd_tpu_torch import native
 
         if native.get_lib() is not None:
-            with open(path, "w") as f:
-                f.write(format_header(opts))
-            blob = np.frombuffer(
-                b"".join(n.encode() + b"\0" for n in ref_names), np.uint8
-            )
-            offs = np.zeros(n_ref, np.int64)
-            np.cumsum(
-                [len(n.encode()) + 1 for n in ref_names[:-1]], out=offs[1:]
-            )
-            ref_sz = np.ascontiguousarray(ref_sizes, np.uint32)
-            for q in range(n_qry):
-                y = int(qry_sizes[q])
-                sel = None
-                if opts.top_n:
-                    sel = np.asarray(
-                        _top_n_rids(counts[q], ref_sizes, y, opts), np.int64
-                    )
-                n = native.dist_row(
-                    path, qry_names[q], blob, offs, ref_sz,
-                    np.ascontiguousarray(counts[q], np.uint32),
-                    y, kmerlen, dim_rd_len, float(cmprsn_num),
-                    int(opts.metric), int(opts.fields),
-                    int(opts.correction), float(opts.max_dist), sel,
-                )
-                if n is None:
-                    raise OSError(f"native dist writer failed on {path}")
-            return
+            _write_native(path, counts, ref_sizes, qry_sizes, ref_names,
+                          qry_names, kmerlen, dim_rd_len, opts, threads)
+            return threads
     with open(path, "w") as f:
         f.write(FULL_HEADER if full else format_header(opts))
         for q in range(n_qry):
@@ -238,6 +321,7 @@ def write_distance_out(
                 )
                 if line:
                     f.write(line)
+    return 1
 
 
 def _full_pair_stats(

@@ -102,6 +102,7 @@ def search(
     mem_gb: float = 0.0,
     koc: bool = False,
     shard_strategy: str = "genome",
+    threads: int = 0,
 ) -> str:
     """Full search -> ``<out_dir>/distance.out``; returns its path.
 
@@ -115,6 +116,8 @@ def search(
     With ``mesh`` (a ``parallel.Mesh``; it takes the place of ``device``)
     counting runs DB-sharded over its devices by ``shard_strategy``
     ('genome' or 'code'), components folded into one key space.
+    ``threads`` (-p) format ``distance.out``; 0 = every CPU this process
+    may use. The output does not depend on it.
     """
     if mesh is not None:
         from public_kssd_tpu_torch import parallel
@@ -196,7 +199,7 @@ def search(
 
     out_path = os.path.join(out_dir, "distance.out")
     with timer.stage("print"):
-        stats_ops.write_distance_out(
+        threads = stats_ops.write_distance_out(
             out_path,
             counts,
             mco_stat.ctx_ct,
@@ -206,6 +209,7 @@ def search(
             qry_stat.kmerlen,
             qry_stat.dim_rd_len,
             opts,
+            threads=threads,
         )
         if koc_counts is not None:
             stats_ops.write_koc_distance_out(
@@ -218,8 +222,9 @@ def search(
         pairs = int(n_qry) * int(n_ref)
         dt = timer.stages["count"][0]
         utils.log.info(
-            "search: %d x %d pairs in %.3fs (%.0f pairs/s) [%s]",
-            n_qry, n_ref, dt, pairs / dt if dt else 0.0, timer.report(),
+            "search: %d x %d pairs in %.3fs (%.0f pairs/s), print threads %d "
+            "[%s]",
+            n_qry, n_ref, dt, pairs / dt if dt else 0.0, threads, timer.report(),
         )
     if not keep_shared_kmer and not shared_kmer_path:
         if isinstance(counts, np.memmap):

@@ -19,16 +19,27 @@ JAX_PKG = os.path.join(REPO, "public_kssd_tpu")
 PORT_PKG = os.path.join(REPO, "public_kssd_tpu_torch")
 
 # host modules copied line for line; only the package name differs
-VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup", "ops/stats",
+VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup",
             "combine", "setops", "reverse", "postproc"]
 
 # copies that differ on purpose: the top-level definitions named here
 # differ, every other definition the two files share must be identical
 DIFFERING = {
-    # builds its own copy of the C source into build/public_kssd_tpu_torch/
-    # under a source-hash name, never loading the committed .so
+    # builds its own copy of the C source, and native/kssd_print.c beside
+    # it, into one library in build/public_kssd_tpu_torch/ under a
+    # source-hash name, never loading the committed .so; binds the block
+    # formatter (Names, dist_rows_buf) in place of the one-row writer
+    # dist_row, which nothing in the port calls
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
-                        "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS"},
+                        "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS", "_PRINT_SRC",
+                        "Names", "dist_rows_buf", "dist_row"},
+    # write_distance_out formats blocks of lines on -p threads through
+    # native/kssd_print.c and writes them in query order (print_threads,
+    # print_blocks, _write_native and their constants); its Python
+    # branch and every formula are the original's
+    "ops/stats": {"write_distance_out", "print_threads", "print_blocks",
+                  "_write_native", "PRINT_BUFFER_BYTES", "BLOCKS_PER_THREAD",
+                  "LINE_BYTES"},
     # logger renamed; profile_trace records a torch.profiler trace (CPU +
     # CUDA) instead of jax.profiler; adds TracedStageTimer, a StageTimer
     # whose stages are also torch.profiler.record_function spans, so a
@@ -199,8 +210,10 @@ def test_native_helper_builds_from_its_own_source():
     from public_kssd_tpu_torch import native
 
     assert native._SRC == os.path.join(PORT_PKG, "native", "kssd_host.c")
+    assert native._PRINT_SRC == os.path.join(PORT_PKG, "native", "kssd_print.c")
     lib = native.get_lib()
     assert lib is not None
+    assert lib.kssd_dist_rows_buf and lib.kssd_fasta_to_codes
     assert os.path.dirname(native._so_path()) == os.path.join(
         REPO, "build", "public_kssd_tpu_torch"
     )
