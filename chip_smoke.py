@@ -48,7 +48,11 @@ Phases, each of which raises on failure (the exit code is then nonzero):
   4. sketch-heavy main path through kssd_torch's CLI: 64 reference and 16
               query genomes of 5.3 Mb (queries are references with 1-5%
               point mutations); shuffle, dist -r refs, dist queries, dist
-              -r ref qry; distance.out byte-equal to the --cpu-count run
+              -r ref qry; distance.out byte-equal to the --cpu-count run;
+              shufspace.detect of the .shuf on the card (the whole-table
+              Feistel check the CLI runs before stage I), timed, its
+              verdict equal to the numpy check's on the run's .shuf and on
+              a copy with two entries swapped past the spot-check
   5. search-heavy main path: the 10,000-ref synthetic DB of phase 3 as a
               stage I directory, indexed and searched by 1,000 queries
               through the CLI; distance.out byte-equal to --cpu-count and
@@ -60,7 +64,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               through the CLI (stage II with --no-dense-index);
               distance.out byte-equal to --cpu-count, each query matches
               its source best, and the combco files of two queries are
-              byte-equal between --device cuda and --device cpu
+              byte-equal between --device cuda and --device cpu; the
+              stage I timer's stages logged, dedup among them (the
+              slot-order dedup of native/kssd_dedup.c, over the filled
+              slots of a 536,870,909-slot table at L3K12)
   7. abundance main path through the CLI:
      7a. metagenome reads: 2 FASTQ samples of 1,000,000 x 150 bp reads,
               90% drawn from 12 of phase 4's 64 references (shares a
@@ -957,6 +964,7 @@ def phase_sketch_heavy(work: str) -> None:
         f"{GENOME_BP} bp in {time.perf_counter() - t0:.1f} s")
     shuf = f"{work}/L3K10"
     run_cli("shuffle", "-k", "10", "-s", "6", "-l", "3", "--seed", "3", "-o", shuf)
+    check_detect(shuf + ".shuf")
     t_ref = run_cli("dist", "-r", ref_dir, "-L", shuf + ".shuf", "-o",
                     f"{work}/ref", "--no-dense-index")
     t_qry = run_cli("dist", "-L", shuf + ".shuf", "-o", f"{work}/qry", qry_dir)
@@ -986,6 +994,37 @@ def phase_sketch_heavy(work: str) -> None:
         f"{N_QRY_GENOMES * mb / t_qry:.2f} Mbases/s ({t_qry:.3f} s); search "
         f"{N_QRY_GENOMES * N_REF_GENOMES / t_search:.1f} pairs/s ({t_search:.3f} s)")
     shutil.rmtree(qry_dir)  # the references feed phase 7's reads
+
+
+def check_detect(path: str) -> None:
+    """shufspace.detect on the card (the whole 16^s table compared there)
+    against its numpy comparison, on the .shuf at ``path`` (a Feistel
+    space: shuffle writes one) and on a copy with two entries swapped at
+    indices the spot-check does not probe."""
+    import torch
+
+    from public_kssd_tpu_torch import formats, shufspace
+
+    params, table = formats.read_shuf(path)
+    swapped = table.copy()
+    swapped[[1, 2]] = swapped[[2, 1]]
+    card = torch.device("cuda", torch.cuda.current_device())
+    shufspace.detect(params, table, card)  # warm-up: the card's first ops
+    times = []
+    for name, tab, feistel in (("the run's .shuf", table, True),
+                               ("two entries swapped", swapped, False)):
+        t = time.perf_counter()
+        got = shufspace.detect(params, tab, card)
+        t_card = time.perf_counter() - t
+        t = time.perf_counter()
+        want = shufspace.detect(params, tab)
+        t_host = time.perf_counter() - t
+        if got != want or (want is not None) != feistel:
+            raise AssertionError(f"detect of {name}: card {got}, numpy {want}")
+        times.append(f"{name}: card {t_card * 1e3:.3f} ms, numpy {t_host * 1e3:.3f} ms")
+    log(f"[sketch-heavy] shufspace.detect of {params.dim_shuf_len} entries "
+        f"(host wall, upload included), the same verdict on the card and in "
+        f"numpy; " + "; ".join(times))
 
 
 def phase_search_heavy(work: str, synth) -> None:

@@ -273,15 +273,16 @@ def _is_mco_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(path, formats.MCO_DSTAT))
 
 
-def _load_params(args):
+def _load_params(args, device):
     """(params, shuf) where shuf is a ComputedShuf when the .shuf encodes
-    a Feistel space (gather-free kernel), else the permutation table."""
+    a Feistel space (gather-free kernel), else the permutation table. The
+    check runs on ``device`` when it is a card (shufspace.detect)."""
     from public_kssd_tpu_torch import formats, shufspace
     from public_kssd_tpu_torch.config import SketchParams
 
     if os.path.isfile(args.dr):
         params, perm = formats.read_shuf(args.dr, component_sz=args.component_sz)
-        computed = shufspace.detect(params, perm)
+        computed = shufspace.detect(params, perm, device)
         return params, (computed if computed is not None else perm)
     params = SketchParams.create(
         k=args.k, drlevel=int(args.dr), component_sz=args.component_sz
@@ -357,7 +358,7 @@ def _cmd_dist_inner(args, device) -> int:
             files = infiles.organize_infile_list(args.fpath)
         else:
             files = infiles.organize_infiles(args.remaining, fmt_ck=not args.pipecmd)
-        params, perm = _load_params(args)
+        params, perm = _load_params(args, device)
         distributed.sketch_shard(
             files, args.outdir, params, perm, opts, shard_id, n_shards,
             device=device,
@@ -371,7 +372,7 @@ def _cmd_dist_inner(args, device) -> int:
             files = infiles.organize_infiles([args.refpath])
             if not files:
                 sys.exit(f"no valid input files in {args.refpath}")
-            params, perm = _load_params(args)
+            params, perm = _load_params(args, device)
             ref_opts = pipeline.SketchOptions(**{
                 **opts.__dict__, "abundance": False  # command_dist.c:94
             })
@@ -440,7 +441,7 @@ def _cmd_dist_inner(args, device) -> int:
             files = infiles.organize_infiles(args.remaining, fmt_ck=not args.pipecmd)
         if not files:
             sys.exit("please specify valid query sequences")
-        params, perm = _load_params(args)
+        params, perm = _load_params(args, device)
         pipeline.run_stage1(files, args.outdir, params, perm, opts,
                             mem_gb=args.mmry, device=device)
         return 0

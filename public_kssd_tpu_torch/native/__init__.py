@@ -1,12 +1,14 @@
-"""ctypes bindings for the native host helpers (kssd_host.c, kssd_print.c).
+"""ctypes bindings for the native host helpers (kssd_host.c, kssd_print.c,
+kssd_dedup.c).
 
 The C sources are this package's own: ``native/kssd_host.c``, a
 byte-equal copy of the JAX package's (tests/test_torch_package.py holds
-the two equal), and ``native/kssd_print.c``, the distance.out block
-formatter. Both are compiled on demand with the system compiler into one
-library in ``build/public_kssd_tpu_torch/`` under the checkout, under a
-name keyed by the sources' hash and flags, so a library built from other
-sources is never loaded. Plain ``-O3`` (no
+the two equal), ``native/kssd_print.c``, the distance.out block
+formatter, and ``native/kssd_dedup.c``, the slot-order dedups that visit
+only the slots they fill. All three are compiled on demand with the
+system compiler into one library in ``build/public_kssd_tpu_torch/``
+under the checkout, under a name keyed by the sources' hash and flags,
+so a library built from other sources is never loaded. Plain ``-O3`` (no
 ``-march=native``): the library runs on any x86-64 host. If the build
 fails (no toolchain), callers fall back to the pure-python/numpy implementations in
 seqio.py / hashdedup.py — same results, slower host path.
@@ -27,6 +29,8 @@ _ROOT = os.path.dirname(
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "kssd_host.c")
 _PRINT_SRC = os.path.join(_HERE, "kssd_print.c")
+_DEDUP_SRC = os.path.join(_HERE, "kssd_dedup.c")
+_SOURCES = (_SRC, _PRINT_SRC, _DEDUP_SRC)
 BUILD_DIR = os.path.join(_ROOT, "build", "public_kssd_tpu_torch")
 _CFLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -36,7 +40,7 @@ _tried = False
 
 def _so_path() -> str:
     h = hashlib.sha256(" ".join(_CFLAGS).encode())
-    for src in (_SRC, _PRINT_SRC):
+    for src in _SOURCES:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"kssd_host-{h.hexdigest()[:16]}.so")
@@ -47,7 +51,7 @@ def _build(so: str) -> bool:
     (test workers) never load a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ["cc", *_CFLAGS, _SRC, _PRINT_SRC, "-o", tmp, "-lm"]
+    cmd = ["cc", *_CFLAGS, *_SOURCES, "-o", tmp, "-lm"]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
     except (OSError, subprocess.CalledProcessError):
@@ -62,7 +66,7 @@ def get_lib():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not (os.path.isfile(_SRC) and os.path.isfile(_PRINT_SRC)):
+    if not all(os.path.isfile(src) for src in _SOURCES):
         return None
     so = _so_path()
     if not os.path.exists(so) and not _build(so):
@@ -78,15 +82,15 @@ def get_lib():
     lib.kssd_fasta_to_codes.argtypes = [u8p, ctypes.c_size_t, u8p]
     lib.kssd_fastq_to_codes.restype = ctypes.c_size_t
     lib.kssd_fastq_to_codes.argtypes = [u8p, ctypes.c_size_t, ctypes.c_int, u8p]
-    lib.kssd_dedup_slot_order.restype = ctypes.c_size_t
-    lib.kssd_dedup_slot_order.argtypes = [
-        u64p, ctypes.c_size_t, u64p, ctypes.c_uint32, ctypes.c_uint32,
-        ctypes.c_int, u64p,
+    lib.kssd_dedup_slot_order_sparse.restype = ctypes.c_size_t
+    lib.kssd_dedup_slot_order_sparse.argtypes = [
+        u64p, ctypes.c_size_t, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+        u32p, u64p, ctypes.c_uint32, u32p, u64p,
     ]
-    lib.kssd_dedup_counts.restype = ctypes.c_size_t
-    lib.kssd_dedup_counts.argtypes = [
-        u64p, ctypes.c_size_t, u64p, ctypes.c_uint32, ctypes.c_int,
-        ctypes.c_int, u64p, u32p,
+    lib.kssd_dedup_counts_sparse.restype = ctypes.c_size_t
+    lib.kssd_dedup_counts_sparse.argtypes = [
+        u64p, ctypes.c_size_t, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+        u32p, u64p, ctypes.c_uint32, u32p, u64p, u32p,
     ]
     lib.kssd_dedup_u32_slot_order.restype = ctypes.c_size_t
     lib.kssd_dedup_u32_slot_order.argtypes = [
@@ -128,17 +132,33 @@ def fastq_to_codes(raw: bytes, min_qual: int = 0) -> np.ndarray | None:
     return out[:n].copy()
 
 
+def _slot_map(n_fill: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Work arrays of kssd_dedup.c's virtual table for up to ``n_fill``
+    filled slots: zeroed keys and values of a power-of-two capacity at
+    least twice ``n_fill`` (at least 4), and the filled slots' list with
+    the radix sort's space."""
+    cap = max(4, 1 << (2 * max(n_fill, 1) - 1).bit_length())
+    if cap > 1 << 31:
+        raise ValueError(f"a dedup of {n_fill} distinct codes does not fit")
+    return (np.zeros(cap, dtype=np.uint32), np.empty(cap, dtype=np.uint64),
+            np.empty(2 * max(n_fill, 1), dtype=np.uint32))
+
+
 def dedup_slot_order(
     codes: np.ndarray, hashsize: int, hashlimit: int, uniq: bool
 ) -> np.ndarray | None:
+    """kssd_dedup_slot_order's codes (kssd_host.c) through its sparse twin
+    in kssd_dedup.c: memory and work follow the stream, not hashsize."""
     lib = get_lib()
     if lib is None:
         return None
     codes = np.ascontiguousarray(codes, dtype=np.uint64)
-    table = np.zeros(hashsize, dtype=np.uint64)
-    out = np.empty(hashsize, dtype=np.uint64)
-    n = lib.kssd_dedup_slot_order(
-        codes, codes.size, table, hashsize, hashlimit, int(uniq), out
+    n_fill = min(codes.size, hashlimit + 1)  # the crowded error stops it there
+    key, val, slots = _slot_map(n_fill)
+    out = np.empty(max(n_fill, 1), dtype=np.uint64)
+    n = lib.kssd_dedup_slot_order_sparse(
+        codes, codes.size, hashsize, hashlimit, int(uniq), key, val, key.size,
+        slots, out,
     )
     if n == ctypes.c_size_t(-1).value:
         from public_kssd_tpu_torch.hashdedup import HashCrowdedError
@@ -150,16 +170,19 @@ def dedup_slot_order(
 def dedup_counts(
     codes: np.ndarray, hashsize: int, count_bits: int, min_occurrence: int
 ) -> tuple[np.ndarray, np.ndarray] | None:
+    """kssd_dedup_counts's codes and counts (kssd_host.c) through its
+    sparse twin in kssd_dedup.c."""
     lib = get_lib()
     if lib is None:
         return None
     codes = np.ascontiguousarray(codes, dtype=np.uint64)
-    table = np.zeros(hashsize, dtype=np.uint64)
-    out_c = np.empty(hashsize, dtype=np.uint64)
-    out_n = np.empty(hashsize, dtype=np.uint32)
-    n = lib.kssd_dedup_counts(
-        codes, codes.size, table, hashsize, count_bits, min_occurrence,
-        out_c, out_n,
+    n_fill = min(codes.size, hashsize)
+    key, val, slots = _slot_map(n_fill)
+    out_c = np.empty(max(n_fill, 1), dtype=np.uint64)
+    out_n = np.empty(max(n_fill, 1), dtype=np.uint32)
+    n = lib.kssd_dedup_counts_sparse(
+        codes, codes.size, hashsize, count_bits, min_occurrence, key, val,
+        key.size, slots, out_c, out_n,
     )
     return out_c[:n].copy(), out_n[:n].copy()
 

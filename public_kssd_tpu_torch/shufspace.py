@@ -114,11 +114,16 @@ def make_feistel_dim(params: SketchParams, seed: int | None = None) -> np.ndarra
     return feistel(np, idx, seed, params.half_subctx_len).astype("<i4")
 
 
-def detect(params: SketchParams, table: np.ndarray) -> ComputedShuf | None:
+def detect(
+    params: SketchParams, table: np.ndarray, device: torch.device | None = None
+) -> ComputedShuf | None:
     """Return the ComputedShuf encoded by a ``.shuf`` table, or None.
 
     The candidate seed is the header id; a cheap spot-check precedes the
-    full-table comparison so foreign tables bail out in microseconds.
+    full-table comparison so foreign tables bail out in microseconds. On
+    a CUDA ``device`` the full comparison runs on the card
+    (``_matches_feistel_torch``); otherwise it is numpy's, as in the
+    JAX package.
     """
     cand = ComputedShuf(seed=params.id, subctx_len=params.half_subctx_len)
     n = params.dim_shuf_len
@@ -129,10 +134,34 @@ def detect(params: SketchParams, table: np.ndarray) -> ComputedShuf | None:
         expect.astype(np.int64),
     ):
         return None
+    if device is not None and torch.device(device).type == "cuda":
+        return cand if _matches_feistel_torch(table, cand, device) else None
     full = make_feistel_dim(params, cand.seed)
     if not np.array_equal(np.asarray(table, dtype="<i4"), full):
         return None
     return cand
+
+
+_CHECK_CHUNK = 1 << 24  # entries a step: 16^6 in one, 16^7 in 16
+
+
+def _matches_feistel_torch(
+    table: np.ndarray, cand: ComputedShuf, device: torch.device
+) -> bool:
+    """Whether ``table`` holds ``feistel_torch`` of every index, computed
+    on ``device``: the table goes up once as int32 and the answer comes
+    back with one sync. Steps of ``_CHECK_CHUNK`` entries bound the int64
+    temporaries at 16^7 entries."""
+    n = 1 << (4 * cand.subctx_len)
+    if np.size(table) != n:
+        return False
+    tab = torch.from_numpy(np.ascontiguousarray(table, dtype=np.int32)).to(device)
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    for lo in range(0, n, _CHECK_CHUNK):
+        idx = torch.arange(lo, min(lo + _CHECK_CHUNK, n), device=device)
+        rank = feistel_torch(idx, cand.seed, cand.subctx_len)
+        ok &= (rank == tab[lo:lo + idx.numel()]).all()
+    return bool(ok)
 
 
 _M32 = 0xFFFFFFFF

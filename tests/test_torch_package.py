@@ -29,10 +29,16 @@ DIFFERING = {
     # it, into one library in build/public_kssd_tpu_torch/ under a
     # source-hash name, never loading the committed .so; binds the block
     # formatter (Names, dist_rows_buf) in place of the one-row writer
-    # dist_row, which nothing in the port calls
+    # dist_row, which nothing in the port calls; dedup_slot_order and
+    # dedup_counts run the sparse twins of native/kssd_dedup.c (the same
+    # bytes; memory and work follow the stream, not hashsize) over a map
+    # of the filled slots (_slot_map), built into the same library
+    # (_DEDUP_SRC, _SOURCES)
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS", "_PRINT_SRC",
-                        "Names", "dist_rows_buf", "dist_row"},
+                        "Names", "dist_rows_buf", "dist_row",
+                        "_DEDUP_SRC", "_SOURCES", "_slot_map",
+                        "dedup_slot_order", "dedup_counts"},
     # write_distance_out formats blocks of lines on -p threads through
     # native/kssd_print.c and writes them in query order (print_threads,
     # print_blocks, _write_native and their constants); its Python
@@ -45,8 +51,13 @@ DIFFERING = {
     # whose stages are also torch.profiler.record_function spans, so a
     # trace's idle gaps carry the host stage around them
     "utils": {"log", "profile_trace", "TracedStageTimer"},
-    # adds feistel_torch, the int64 tensor twin of feistel
-    "shufspace": {"feistel_torch", "_M32"},
+    # adds feistel_torch, the int64 tensor twin of feistel; detect takes
+    # a device and, on a card, compares the whole table there
+    # (_matches_feistel_torch, in steps of _CHECK_CHUNK entries) instead
+    # of building it in numpy; its spot-check and its CPU path are the
+    # original's
+    "shufspace": {"feistel_torch", "_M32", "detect", "_matches_feistel_torch",
+                  "_CHECK_CHUNK"},
     # looks for the real GTDB size file relative to the working
     # directory, not at the original's absolute path
     "synthdb": {"REAL_GTDB_INDEX"},
@@ -211,9 +222,11 @@ def test_native_helper_builds_from_its_own_source():
 
     assert native._SRC == os.path.join(PORT_PKG, "native", "kssd_host.c")
     assert native._PRINT_SRC == os.path.join(PORT_PKG, "native", "kssd_print.c")
+    assert native._DEDUP_SRC == os.path.join(PORT_PKG, "native", "kssd_dedup.c")
     lib = native.get_lib()
     assert lib is not None
     assert lib.kssd_dist_rows_buf and lib.kssd_fasta_to_codes
+    assert lib.kssd_dedup_slot_order_sparse and lib.kssd_dedup_counts_sparse
     assert os.path.dirname(native._so_path()) == os.path.join(
         REPO, "build", "public_kssd_tpu_torch"
     )
