@@ -26,9 +26,13 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               symbols holding a poly-A run of 2^20 bases in a space that
               keeps every window of it; sketch_codes_stream at (10,6,3)
               and (12,6,3) on the card against the same call on CPU
-              tensors; count at 1,000 queries x 10,000 refs x ~1,300
-              codes (13M postings, the shared-row variant) and on full
-              32-bit codes; count_koc (the abundance-weighted twin) at
+              tensors; pack2_torch on the card against pack2;
+              sketch_codes_multi over 200 streams of 2^22 symbols in
+              chunks of 2^16 (the pinned staging rotation, the deferred
+              fill pass, one fetch) on the card against the CPU; count
+              at 1,000 queries x 10,000 refs x ~1,300 codes (13M
+              postings, the shared-row variant) and on full 32-bit
+              codes; count_koc (the abundance-weighted twin) at
               the same shape with abundances 1..65535 and one planted
               cell past 2^32; count64 and count_koc64 (the 64-bit-key
               instances of the mesh search) at the same shape with every
@@ -154,6 +158,9 @@ N_REF_GENOMES, N_QRY_GENOMES = 64, 16
 N_WIDE_REFS, N_WIDE_QRYS = 16, 4
 SYNTH_REFS, SYNTH_QRYS, SYNTH_SKETCH = 10_000, 1_000, 1_300
 SKETCH_SYMBOLS = 1 << 24
+# phase 3's sketch_codes_multi check: a quarter of the symbols with
+# breaks, cut into this many streams, in chunks of this many symbols
+MULTI_STREAMS, MULTI_BLOCK = 200, 1 << 16
 SEED = 20261016
 N_SAMPLES, N_READS, READ_LEN = 2, 1_000_000, 150
 N_PLANTED, SHARE_RATIO = 12, 1.5
@@ -469,6 +476,33 @@ def phase_kernels(device, work: str) -> tuple[dict, tuple[np.ndarray, np.ndarray
         log(f"[kernels] sketch_codes_stream (k,s,l)=({k},6,3) 2^24 symbols with "
             f"breaks: {codes_d.size} codes, card == CPU; card {t_dev:.3f} s, CPU "
             f"plain {t_cpu:.3f} s (host clock)")
+
+    # the card's packer against the host's, on the symbols with breaks
+    packed = sketch.pack2_torch(torch.from_numpy(brk).to(device), n)
+    if not np.array_equal(packed.cpu().numpy(), sketch.pack2(brk, n).view(np.int32)):
+        raise AssertionError("pack2_torch on the card != pack2 on the host")
+    log("[kernels] pack2_torch of 2^24 symbols with breaks on the card == pack2")
+
+    # many streams at a small block: the pinned staging rotation, the
+    # deferred fill and the group's one fetch, over many chunks
+    cuts = np.sort(rng.choice(n // 4, size=MULTI_STREAMS - 1, replace=False))
+    streams = np.split(brk[: n // 4], cuts)
+    for k in (10, 12):
+        p = SketchParams.create(k=k, drlevel=3, subk=6, seed=k)
+        comp = shufspace.ComputedShuf(p.id, p.half_subctx_len)
+        got, walls = {}, {}
+        for on in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            got[on.type] = sketch.sketch_codes_multi(iter(streams), comp, p,
+                                                     block=MULTI_BLOCK, device=on)
+            walls[on.type] = time.perf_counter() - t0
+        if any(not np.array_equal(a, b)
+               for a, b in zip(got["cuda"], got["cpu"], strict=True)):
+            raise AssertionError(f"sketch_codes_multi at k={k} on the card != on the CPU")
+        log(f"[kernels] sketch_codes_multi (k,s,l)=({k},6,3) {len(streams)} streams, "
+            f"{n // 4} symbols, block {MULTI_BLOCK} ({-(-n // 4 // MULTI_BLOCK)}+ "
+            f"chunks): {sum(g.size for g in got['cpu'])} codes, card == CPU; card "
+            f"{walls['cuda']:.3f} s, CPU plain {walls['cpu']:.3f} s (host clock)")
 
     # counting at the 1000 x 10k bench shape
     t0 = time.perf_counter()

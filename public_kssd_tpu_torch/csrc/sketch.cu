@@ -68,7 +68,8 @@
 //
 // The stream carries no BREAK symbols (2-bit packing has no room for
 // them): windows reaching past n_valid are dropped here, and windows that
-// cross a break are dropped by the host from their positions.
+// cross a break are dropped after the fill pass, on the card, by a gather
+// of the breaks' prefix sum at their positions (ops/sketch.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>

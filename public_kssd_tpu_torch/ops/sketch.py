@@ -25,21 +25,30 @@ the survivors on the card; for CPU tensors it runs the plain version
 (``torch.nonzero`` over the dense codes of
 ``sketch_windows_dense_plain``).
 
-Streaming (``_stream_packed``): the host packs each block of symbols to 2
-bits per base (16 per uint32 word), the device returns the kept windows'
-(position, code) pairs, and the host drops survivors whose window reaches
-past the block's real length or covers a BREAK, by position. Narrow and
-wide geometries share this path.
+Streaming (``_stream_packed``): the host copies each piece of symbols
+once into a staging buffer (pinned for a card, three in rotation), and
+each chunk's symbols go to the device asynchronously, on a side stream.
+There they are packed to 2 bits per base (16 per uint32 word,
+``pack2_torch``) and their BREAKs summed; the keep pass runs at once,
+and the fill pass after the next chunk is on its way (no host wait per
+chunk). The survivors whose window reaches past the chunk's real length
+or covers a BREAK are dropped by position on the device, and the kept
+(position, code) pairs of all chunks come back in one fetch. CPU tensors
+run the same code with unpinned buffers and the plain version. Narrow
+and wide geometries share this path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
+from collections.abc import Callable
 
 import numpy as np
 import torch
 
-from public_kssd_tpu_torch import kernels, shufspace
+from public_kssd_tpu_torch import kernels, resolve_device, shufspace
 from public_kssd_tpu_torch.config import SketchParams
 from public_kssd_tpu_torch.seqio import BREAK
 
@@ -197,23 +206,22 @@ def sketch_windows_kept_plain(
 SKETCH_TILE = 8192
 
 
-def sketch_windows_kept(
+def sketch_windows_keep(
     words: torch.Tensor,  # int32 [n_words]: pack2 output, bit view
     n_valid: int,
     shuffled_dim,  # ComputedShuf or int32 [16^s] tensor on words.device
     params: SketchParams,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(pos int64 [m], code ``dense_dtype(params)`` [m]): every window of
-    the first ``n_valid`` symbols that the shuffle space keeps, in
-    ascending position.
+) -> Callable[[], tuple[torch.Tensor, torch.Tensor]]:
+    """The keep pass of ``sketch_windows_kept``, launched now; returns the
+    function that launches the fill pass and returns its (pos, code).
 
-    CUDA tensors launch ``csrc/sketch.cu`` (the narrow kernel for int32
-    codes, the wide one for int64 codes): a keep pass writes a keep mask
-    and a survivor count per block, ``torch.cumsum`` of the counts sizes
-    the output exactly, and a fill pass writes the survivors; the two
-    passes count as one launch. CPU tensors run the plain version."""
+    The keep pass's total is copied to pinned host memory behind an
+    event, so a caller that does other work between the two calls (the
+    stream assembles and launches its next chunk) finds it there without
+    waiting on the card. CPU tensors run the plain version at once."""
     if words.device.type != "cuda":
-        return sketch_windows_kept_plain(words, n_valid, shuffled_dim, params)
+        kept = sketch_windows_kept_plain(words, n_valid, shuffled_dim, params)
+        return lambda: kept
     table, computed = _norm_shuf(shuffled_dim)
     if words.dtype != torch.int32 or words.dim() != 1:
         raise TypeError("words must be a 1-D int32 tensor (pack2 bit view)")
@@ -237,40 +245,74 @@ def sketch_windows_kept(
     dtype = dense_dtype(params)
     n_tiles = -(-words.numel() * 16 // SKETCH_TILE)
     if n_tiles == 0:
-        return (torch.zeros(0, dtype=torch.int64, device=dev),
-                torch.zeros(0, dtype=dtype, device=dev))
+        empty = (torch.zeros(0, dtype=torch.int64, device=dev),
+                 torch.zeros(0, dtype=dtype, device=dev))
+        return lambda: empty
     kernel = kernels.sketch_wide_kernel if dtype == torch.int64 else kernels.sketch_kernel
     mask = torch.empty(n_tiles * 256, dtype=torch.int32, device=dev)
     counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    args = (
-        words.data_ptr(), words.numel(), int(n_valid), params.TL,
-        2 * params.half_outctx_len, params.dim_shuf_len - 1,
-        params.undomask, params.rightmask, 4 * params.half_subctx_len,
-        4 * params.drlevel, params.dim_start, params.dim_end,
-        2 * params.half_subctx_len, *keys,
-        table.data_ptr() if table is not None else None, n_tiles,
-        mask.data_ptr(),
-    )
+
+    def args():
+        # words, table and mask stay referenced here until the fill pass
+        return (
+            words.data_ptr(), words.numel(), int(n_valid), params.TL,
+            2 * params.half_outctx_len, params.dim_shuf_len - 1,
+            params.undomask, params.rightmask, 4 * params.half_subctx_len,
+            4 * params.drlevel, params.dim_start, params.dim_end,
+            2 * params.half_subctx_len, *keys,
+            table.data_ptr() if table is not None else None, n_tiles,
+            mask.data_ptr(),
+        )
+
     with torch.cuda.device(dev):
         stream = kernels.stream_handle(dev)
-        kernel.launch(0, *args, counts.data_ptr(), None, None, stream)
+        kernel.launch(0, *args(), counts.data_ptr(), None, None, stream)
         cum = torch.cumsum(counts, 0)  # int64
-        total = int(cum[-1])
-        pos = torch.empty(total, dtype=torch.int64, device=dev)
-        code = torch.empty(total, dtype=dtype, device=dev)
-        if total:
-            kernel.launch(1, *args, cum.data_ptr(), pos.data_ptr(),
-                          code.data_ptr(), stream, count=False)
-    return pos, code
+        total = torch.empty((), dtype=torch.int64, pin_memory=True)
+        total.copy_(cum[-1], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+    def fill() -> tuple[torch.Tensor, torch.Tensor]:
+        done.synchronize()
+        n = int(total)
+        with torch.cuda.device(dev):
+            pos = torch.empty(n, dtype=torch.int64, device=dev)
+            code = torch.empty(n, dtype=dtype, device=dev)
+            if n:
+                kernel.launch(1, *args(), cum.data_ptr(), pos.data_ptr(),
+                              code.data_ptr(), stream, count=False)
+        return pos, code
+
+    return fill
+
+
+def sketch_windows_kept(
+    words: torch.Tensor,  # int32 [n_words]: pack2 output, bit view
+    n_valid: int,
+    shuffled_dim,  # ComputedShuf or int32 [16^s] tensor on words.device
+    params: SketchParams,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pos int64 [m], code ``dense_dtype(params)`` [m]): every window of
+    the first ``n_valid`` symbols that the shuffle space keeps, in
+    ascending position.
+
+    CUDA tensors launch ``csrc/sketch.cu`` (the narrow kernel for int32
+    codes, the wide one for int64 codes): a keep pass writes a keep mask
+    and a survivor count per block, ``torch.cumsum`` of the counts sizes
+    the output exactly, and a fill pass writes the survivors; the two
+    passes count as one launch. CPU tensors run the plain version."""
+    return sketch_windows_keep(words, n_valid, shuffled_dim, params)()
 
 
 def pack2(symbols: np.ndarray, total: int) -> np.ndarray:
-    """Host-side 2-bit packing: uint8 codes -> uint32 words (16 bases each).
+    """Host-side 2-bit packing: uint8 codes -> uint32 words (16 bases each),
+    the layout the kernels read (the stream packs on the device with
+    ``pack2_torch``, its twin).
 
-    BREAK symbols are packed as code 0 — the caller records break
-    positions separately and filters survivors by position (the device
-    never sees breaks). ``total`` (multiple of 16) pads with code 0.
-    Uses the native C packer when available, numpy otherwise.
+    BREAK symbols are packed as code 0: the kernels never see breaks.
+    ``total`` (multiple of 16) pads with code 0. Uses the native C packer
+    when available, numpy otherwise.
     """
     from public_kssd_tpu_torch import native
 
@@ -284,27 +326,116 @@ def pack2(symbols: np.ndarray, total: int) -> np.ndarray:
     return by.view("<u4")
 
 
-def _iter_chunks(pieces, block: int, W: int):
-    """Assemble an iterator of symbol arrays into (global_start, chunk)
-    blocks of at most ``block`` symbols, consecutive blocks overlapping
-    by W-1 so every window is seen exactly once. Consumes ``pieces``
-    lazily, so upstream parsing overlaps downstream work. Block sizes
-    ramp up (4M -> 8M -> ... -> block) so the first block starts as soon
+def pack2_torch(symbols: torch.Tensor, total: int) -> torch.Tensor:
+    """``pack2`` on the device of ``symbols`` (uint8 [n], n <= total):
+    int32 words (the uint32 bit view), 16 bases each, low bits first;
+    BREAK packs as code 0 and the symbols from n to ``total`` (a multiple
+    of 16) as 0."""
+    a = torch.zeros(total, dtype=torch.uint8, device=symbols.device)
+    torch.bitwise_and(symbols, 3, out=a[: symbols.numel()])
+    a = a.view(-1, 4)
+    by = a[:, 0] | (a[:, 1] << 2) | (a[:, 2] << 4) | (a[:, 3] << 6)
+    return by.view(torch.int32)
+
+
+# host buffers a stream rotates its chunks through: one is filled while
+# the uploads of the others run
+STAGING_BUFFERS = 3
+
+
+class _Staging:
+    """``STAGING_BUFFERS`` host buffers of ``block`` symbols that a stream
+    assembles its chunks in, pinned for a card, with the side stream that
+    uploads them and the event that ends each one's last upload."""
+
+    def __init__(self, device: torch.device, block: int):
+        self.device = device
+        cuda = device.type == "cuda"
+        self.bufs = [torch.empty(block, dtype=torch.uint8, pin_memory=cuda)
+                     for _ in range(STAGING_BUFFERS)]
+        self.host = [b.numpy() for b in self.bufs]
+        self.events: list[torch.cuda.Event | None] = [None] * STAGING_BUFFERS
+        self.stream = torch.cuda.Stream(device) if cuda else None
+
+    def writable(self, i: int) -> np.ndarray:
+        """Buffer ``i`` as a numpy array, once its last upload has ended."""
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+            self.events[i] = None
+        return self.host[i]
+
+    def upload(self, i: int, n: int) -> torch.Tensor:
+        """The first ``n`` symbols of buffer ``i`` on the device. On a card
+        the copy runs on the side stream, and torch's current stream,
+        where the kernels launch, waits for it."""
+        if self.stream is None:
+            return self.bufs[i][:n].clone()
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream()
+            with torch.cuda.stream(self.stream):
+                sym = torch.empty(n, dtype=torch.uint8, device=self.device)
+                sym.copy_(self.bufs[i][:n], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            current.wait_event(done)
+            sym.record_stream(current)
+        self.events[i] = done
+        return sym
+
+
+_STAGING: dict[tuple[torch.device, int], list[_Staging]] = {}
+_STAGING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _staging(device: torch.device, block: int):
+    """A set of staging buffers for one stream: kept for the process and
+    reused by later streams of the same device and block size; a stream
+    that runs while another holds the set gets a new one."""
+    key = (device, block)
+    with _STAGING_LOCK:
+        free = _STAGING.setdefault(key, [])
+        st = free.pop() if free else None
+    if st is None:
+        st = _Staging(device, block)
+    try:
+        yield st
+    finally:
+        with _STAGING_LOCK:
+            _STAGING[key].append(st)
+
+
+def _assemble(pieces, block: int, W: int, staging: _Staging):
+    """Copy an iterator of symbol arrays into the staging buffers in
+    rotation, as (global_start, n, buffer) chunks of at most ``block``
+    symbols, consecutive chunks overlapping by W-1 so every window is
+    seen exactly once: each symbol is copied once, and only the W-1
+    overlap symbols again into the next buffer. Consumes ``pieces``
+    lazily, so upstream parsing overlaps downstream work. Chunk sizes
+    ramp up (4M -> 8M -> ... -> block) so the first chunk starts as soon
     as about one genome has parsed."""
-    carry = np.zeros(0, np.uint8)
     gstart = 0
     target = min(1 << 22, block)
+    slot = 0
+    buf = staging.writable(slot)
+    fill = 0
     for piece in pieces:
-        if piece.size == 0:
-            continue
-        carry = np.concatenate([carry, piece]) if carry.size else piece
-        while carry.size >= target:
-            yield gstart, carry[:target]
-            gstart += target - (W - 1)
-            carry = carry[target - (W - 1):]
-            target = min(target * 2, block)
-    if carry.size >= W:
-        yield gstart, carry
+        off = 0
+        while off < piece.size:
+            take = min(piece.size - off, target - fill)
+            buf[fill:fill + take] = piece[off:off + take]
+            fill += take
+            off += take
+            if fill == target:
+                yield gstart, fill, slot
+                nxt = (slot + 1) % STAGING_BUFFERS
+                head = staging.writable(nxt)
+                head[:W - 1] = buf[target - (W - 1):target]
+                gstart += target - (W - 1)
+                slot, buf, fill = nxt, head, W - 1
+                target = min(target * 2, block)
+    if fill >= W:
+        yield gstart, fill, slot
 
 
 def _stream_packed(
@@ -314,34 +445,60 @@ def _stream_packed(
     block: int,
     device: torch.device,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Packed streaming core: 2-bit-packed uploads, the kept windows'
-    (position, code) pairs from the device in one fetch, host-side
-    position filtering of break windows. Returns (codes uint64, positions
-    int64) in sequence order."""
+    """Streaming core: each chunk's symbols go to the device once, where
+    they are packed to 2 bits a base and their breaks summed; the keep
+    pass runs, and its fill pass waits until the next chunk is on its
+    way; the kept windows that reach past the chunk or cover a BREAK are
+    marked there by position, and the pairs of all chunks come back in
+    one fetch. Returns (codes uint64, positions int64) in sequence
+    order."""
+    if block % 16 or block < max(params.TL, 16):
+        raise ValueError(f"block {block}: a multiple of 16 of at least a window")
+    device = resolve_device(device)  # names the card: one staging set per card
     shuf = as_shuf(shuffled_dim, device)
     W = params.TL
-    out_codes: list[np.ndarray] = []
-    out_pos: list[np.ndarray] = []
-    for gstart, chunk in _iter_chunks(pieces, block, W):
-        bucket = min(block, max(4096, 1 << (chunk.size - 1).bit_length()))
-        brks = np.flatnonzero(chunk >= BREAK).astype(np.int64)
-        words = torch.from_numpy(pack2(chunk, bucket).view(np.int32)).to(device)
-        pos, code = sketch_windows_kept(words, chunk.size, shuf, params)
+    span = torch.profiler.record_function
+    kept: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def finish(gstart, n, breaks, fill):
+        pos, code = fill()
+        # breaks[p] = BREAKs before p: a window at p covers none when
+        # breaks[p + W] == breaks[p]
+        end = (pos + W).clamp_(max=n)
+        ok = (breaks[end] == breaks[pos]) & (pos <= n - W)
         # int32 codes are non-negative; int64 codes are uint64 bit patterns
-        kept = torch.stack([pos, code.to(torch.int64)]).cpu().numpy()
-        lpos, codes = kept[0], kept[1].view(np.uint64)
-        # host-side validity: window fully inside the real chunk AND
-        # break-free (window at local p covers [p, p+W))
-        keep = lpos <= chunk.size - W
-        if brks.size:
-            keep &= np.searchsorted(brks, lpos + W - 1, "right") == (
-                np.searchsorted(brks, lpos, "left")
-            )
-        out_pos.append(lpos[keep] + gstart)
-        out_codes.append(codes[keep])
-    if not out_codes:
+        kept.append((torch.stack([pos + gstart, code.to(torch.int64)]), ok))
+
+    with _staging(device, block) as staging:
+        chunks = _assemble(pieces, block, W, staging)
+        pending = None
+        while True:
+            with span("sketch.assemble"):
+                item = next(chunks, None)
+            if item is None:
+                break
+            gstart, n, slot = item
+            with span("sketch.upload"):
+                sym = staging.upload(slot, n)
+            with span("sketch.launch"):
+                bucket = min(block, max(4096, 1 << (n - 1).bit_length()))
+                words = pack2_torch(sym, bucket)
+                breaks = torch.zeros(n + 1, dtype=torch.int32, device=device)
+                torch.cumsum(sym >= BREAK, 0, dtype=torch.int32, out=breaks[1:])
+                fill = sketch_windows_keep(words, n, shuf, params)
+            if pending is not None:
+                with span("sketch.fill"):
+                    finish(*pending)
+            pending = (gstart, n, breaks, fill)
+        if pending is not None:
+            with span("sketch.fill"):
+                finish(*pending)
+    if not kept:
         return np.zeros(0, np.uint64), np.zeros(0, np.int64)
-    return np.concatenate(out_codes), np.concatenate(out_pos)
+    with span("sketch.fetch"):
+        pairs = torch.cat([p for p, _ in kept], 1)[:, torch.cat([k for _, k in kept])]
+        out = pairs.cpu().numpy()
+    return out[1].view(np.uint64), out[0]
 
 
 def sketch_codes_stream(
@@ -403,6 +560,7 @@ def sketch_codes_reads(
     reads: list[np.ndarray],
     shuffled_dim,
     params: SketchParams,
+    block: int = 1 << 24,
     *,
     device: torch.device,
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -423,7 +581,8 @@ def sketch_codes_reads(
         pieces.append(brk)
         bounds[i + 1] = bounds[i] + r.size + 1
     symbols = np.concatenate(pieces)
-    codes, pos = sketch_codes_stream(symbols, shuffled_dim, params, device=device)
+    codes, pos = sketch_codes_stream(symbols, shuffled_dim, params, block,
+                                     device=device)
     # window starting at p belongs to the read whose span contains p
     read_id = np.searchsorted(bounds, pos, side="right") - 1
     return codes, read_id

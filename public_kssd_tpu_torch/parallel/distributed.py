@@ -20,6 +20,7 @@ an additional json file the reference simply ignores.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 
@@ -36,7 +37,8 @@ def initialize(coordinator_address: str | None = None,
     ``coordinator_address`` is ``host:port`` of rank 0's rendezvous (a
     free port); the backend is gloo for CPU tensors and nccl for CUDA
     (``device``), where each process takes card ``process_id`` modulo the
-    visible cards as its current device."""
+    visible cards as its current device. The group is destroyed when
+    the interpreter exits (``_destroy_at_exit``)."""
     import torch
     import torch.distributed as dist
 
@@ -52,7 +54,19 @@ def initialize(coordinator_address: str | None = None,
             world_size=num_processes,
             rank=process_id,
         )
+        atexit.register(_destroy_at_exit)
     return parallel.process_index(), parallel.process_count()
+
+
+def _destroy_at_exit() -> None:
+    """Destroy the default process group, if one is still up, before the
+    interpreter tears down: a gloo group left to the interpreter's exit
+    can abort the process ("terminate called without an active
+    exception") while its threads still run."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def shard_files(files: list[str], n_shards: int, shard_id: int) -> list[str]:

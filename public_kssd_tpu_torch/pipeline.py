@@ -210,7 +210,8 @@ def run_stage1(
     # batch files through the device in bounded symbol groups: one
     # concatenated kernel pass per group amortises device roundtrips;
     # parsing runs ahead on host threads (parsed_streams). -m bounds the
-    # group size (a group is held in RAM: symbols + packed upload copy).
+    # group size (a group's parsed symbols are held in RAM until its
+    # kept codes come back).
     group_budget = 64 << 20
     if mem_gb > 0:
         group_budget = max(8 << 20, int(mem_gb * 1e9) // 4)
@@ -223,7 +224,7 @@ def run_stage1(
 
         def gen():
             # lazy feed: the device pipeline consumes streams as they
-            # parse, so gzip/scan threads overlap packing/upload/compute
+            # parse, so gzip/scan threads overlap staging/upload/compute
             nonlocal pending_item, used
             while pending_item is not None and (
                 not group_meta or used < group_budget

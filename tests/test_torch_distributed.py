@@ -99,9 +99,11 @@ def test_combine_queries_parity(golden7, in_dir):
 
 # --------------------------------------------------------- two processes
 
-def _run_workers(tmp_path, body: str, n: int = 2) -> None:
+def _run_workers(tmp_path, body: str, n: int = 2, prelude: str = "") -> list[str]:
     """Run ``body`` in n processes joined by torch.distributed (gloo on a
-    free loopback port); ``pid`` and ``world`` are bound in it."""
+    free loopback port); ``pid`` and ``world`` are bound in it. ``prelude``
+    runs before the group is initialised. Returns each process's stdout;
+    every process must exit 0."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -113,6 +115,7 @@ def _run_workers(tmp_path, body: str, n: int = 2) -> None:
         torch.set_num_threads(1)
         from public_kssd_tpu_torch import parallel
         from public_kssd_tpu_torch.parallel import distributed
+    """) + textwrap.dedent(prelude) + textwrap.dedent(f"""
         pid, world = distributed.initialize("127.0.0.1:{port}", {n},
                                             int(sys.argv[1]))
         assert world == {n} and pid == int(sys.argv[1])
@@ -125,13 +128,36 @@ def _run_workers(tmp_path, body: str, n: int = 2) -> None:
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for i in range(n)
     ]
+    outs = []
     try:
         for p in procs:
-            _, err = p.communicate(timeout=WORKER_TIMEOUT)
+            out, err = p.communicate(timeout=WORKER_TIMEOUT)
             assert p.returncode == 0, err.decode()[-3000:]
+            outs.append(out.decode())
     finally:
         for p in procs:
             p.kill()
+    return outs
+
+
+@pytest.mark.parametrize("round_", range(5))
+def test_two_process_group_ends_at_exit(tmp_path, round_):
+    """A two-process gloo group, started, used and left at exit, five
+    times in a row: every worker exits 0, and the group is destroyed
+    before the interpreter ends (the teardown ``initialize`` registers;
+    a group left to the interpreter's exit once aborted a worker)."""
+    outs = _run_workers(tmp_path, """
+        import torch.distributed as dist
+        t = torch.full((4,), float(pid + 1))
+        dist.all_reduce(t)
+        assert t.tolist() == [3.0] * 4, t
+    """, prelude="""
+        import atexit
+        import torch.distributed as dist
+        # registered first, so it runs after initialize's teardown
+        atexit.register(lambda: print("destroyed:", not dist.is_initialized()))
+    """)
+    assert [o.split() for o in outs] == [["destroyed:", "True"]] * 2
 
 
 def test_two_process_db_sharded_search(db_env, tmp_path):  # noqa: F811

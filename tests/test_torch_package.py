@@ -71,9 +71,9 @@ DIFFERING = {
         "_overflow_retry", "_batched_stats_device", "_csr_stats_device",
         "species_abundance", "abv_search_device", "cmd_composite",
     },
-    # torch.distributed instead of jax.distributed; stage I on a torch
-    # device
-    "parallel/distributed": {"initialize", "sketch_shard"},
+    # torch.distributed instead of jax.distributed, its group destroyed
+    # at exit (_destroy_at_exit); stage I on a torch device
+    "parallel/distributed": {"initialize", "_destroy_at_exit", "sketch_shard"},
     # ragged shards on a torch device mesh, counted by csrc/count.cu's
     # 64-bit-key instances: no padding, rank tables, pair capacity,
     # shard_map step or 22-bit collective planes; the component fold

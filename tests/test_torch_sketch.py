@@ -382,3 +382,161 @@ def test_sketch_codes_reads_matches_jax():
 
 def test_sketch_codes_reads_wide_matches_jax():
     _check_reads(11, 6, 3, 6000)
+
+
+# ------------------------------------------- the stream's chunks and edges
+
+def _edge_geometry(geom):
+    """(port params, JAX params, port shuf, JAX shuf): narrow int32 codes
+    at (8,5,2), wide int64 codes at (12,6,2); both keep 1 window in 256."""
+    k, s, l = {"narrow": (8, 5, 2), "wide": (12, 6, 2)}[geom]
+    p, jp = _params(k, s, l)
+    shuf, jshuf = _shufs(p, "feistel", seed=0)
+    return p, jp, shuf, jshuf
+
+
+def _chunk_starts(n, block, W):
+    """Where the stream's chunks start when block <= 4M symbols."""
+    return list(range(0, n, block - (W - 1)))
+
+
+def _edge_case(case, block, W):
+    """(kind, data) of one stream edge case: kind "stream" (one array for
+    sketch_codes_stream), "multi" (streams for sketch_codes_multi: an
+    array, or a list of pieces given as an iterator) or "reads"."""
+    rng = np.random.default_rng(block + W)
+
+    def sym(n, n_breaks=0):
+        return _symbols(n, seed=int(rng.integers(1 << 30)), n_breaks=n_breaks)
+
+    n = 4 * block
+    if case == "piece_larger_than_block":
+        return "multi", [[sym(3 * block + 17), sym(2 * block + 5), sym(100)],
+                         sym(5 * block, 30)]
+    if case == "one_symbol_pieces":
+        ones = sym(3000)
+        return "multi", [list(ones[:, None]), sym(block + 3),
+                         [p for i in range(0, 2000, 7)
+                          for p in (ones[i:i + 1], sym(50 + i))]]
+    if case == "break_at_chunk_first_symbol":
+        a = sym(n)
+        a[_chunk_starts(n, block, W)] = BREAK
+        return "stream", a
+    if case == "break_at_chunk_last_symbol":
+        a = sym(n)
+        a[[min(s + block - 1, n - 1) for s in _chunk_starts(n, block, W)]] = BREAK
+        return "stream", a
+    if case == "n_run_straddling_chunk_edge":
+        a = sym(n)
+        a[block - 40:block + 40] = BREAK
+        edge = _chunk_starts(n, block, W)[2] + block  # chunk 2's end
+        a[edge - 3:edge + 10] = BREAK
+        return "stream", a
+    if case == "shorter_than_W":
+        return "multi", [sym(W - 1), sym(1), sym(0), sym(2 * block), sym(W - 1),
+                         [sym(W - 2), sym(0)]]
+    if case == "empty_pieces":
+        return "multi", [sym(0), [sym(0), sym(block + 9), sym(0)], [],
+                         [sym(0), sym(0)], sym(3 * block), [sym(7), sym(0), sym(block)]]
+    if case == "reads":
+        return "reads", [sym(int(m), 1) for m in rng.integers(1, 3 * W, 2000)]
+    raise AssertionError(case)
+
+
+EDGE_CASES = ["piece_larger_than_block", "one_symbol_pieces",
+              "break_at_chunk_first_symbol", "break_at_chunk_last_symbol",
+              "n_run_straddling_chunk_edge", "shorter_than_W", "empty_pieces",
+              "reads"]
+
+
+def _run_edge(kind, data, p, jp, shuf, jshuf, block):
+    """The port's and the JAX package's arrays for one edge case."""
+    if kind == "stream":
+        got = sketch.sketch_codes_stream(data, shuf, p, block=block, device=CPU)
+        want = jax_sketch.sketch_codes_stream(data, jshuf, jp, block=block)
+        return list(got), list(want)
+    if kind == "reads":
+        got = sketch.sketch_codes_reads(data, shuf, p, block, device=CPU)
+        return list(got), list(jax_sketch.sketch_codes_reads(data, jshuf, jp))
+
+    def streams():
+        return [s if isinstance(s, np.ndarray) else iter(s) for s in data]
+
+    got = sketch.sketch_codes_multi(streams(), shuf, p, block=block, device=CPU)
+    want = jax_sketch.sketch_codes_multi(streams(), jshuf, jp, block=block)
+    assert len(got) == len(want) == len(data)
+    return got, want
+
+
+@pytest.mark.parametrize("block", [1 << 12, 1 << 16])
+@pytest.mark.parametrize("geom", ["narrow", "wide"])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_stream_edge_cases_match_jax(case, geom, block):
+    """sketch_codes_stream / _multi / _reads across many chunks of a small
+    block: pieces larger than a block, one-symbol pieces, a BREAK at each
+    chunk's first or last symbol, an N run over a chunk edge, streams
+    shorter than a window, empty pieces and streams, reads; the port's
+    arrays equal the JAX package's."""
+    p, jp, shuf, jshuf = _edge_geometry(geom)
+    kind, data = _edge_case(case, block, p.TL)
+    got, want = _run_edge(kind, data, p, jp, shuf, jshuf, block)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    if case != "shorter_than_W":
+        assert sum(g.size for g in got) > 0
+
+
+@pytest.mark.parametrize("geom", ["narrow", "wide"])
+def test_stream_ignores_garbage_in_the_staging_tail(geom):
+    """The staging buffers are reused between streams: filled with
+    random bytes (bases and BREAKs) before a stream, they still give the
+    JAX package's arrays, whose chunks end mid-buffer."""
+    p, jp, shuf, jshuf = _edge_geometry(geom)
+    block = 1 << 12
+    rng = np.random.default_rng(77)
+    with sketch._staging(CPU, block) as st:
+        for buf in st.host:
+            buf[:] = rng.integers(0, 256, buf.size, dtype=np.uint8)
+        mine = st
+    streams = [_symbols(int(n), seed=int(n), n_breaks=3)
+               for n in rng.integers(10, 3 * block, 25)]
+    got = sketch.sketch_codes_multi(iter(streams), shuf, p, block=block, device=CPU)
+    with sketch._staging(CPU, block) as st:
+        assert st is mine  # the run above used the garbage-filled set
+    want = jax_sketch.sketch_codes_multi(iter(streams), jshuf, jp, block=block)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+    assert sum(g.size for g in got) > 0
+
+
+@pytest.mark.parametrize("block,sizes", [
+    (1 << 12, [5000, 1, 0, 4096, 3]),
+    (1 << 16, [70_000, 200_000, 17]),
+    (1 << 24, [5_000_000, 4_194_300, 12_000_000]),
+])
+def test_assemble_chunks_equal_the_jax_iter_chunks(block, sizes):
+    """The staging assembly yields the JAX package's _iter_chunks chunks:
+    the same global starts, sizes (the 4M -> 8M -> ... -> block ramp) and
+    symbols, one piece copied into as many buffers as it spans."""
+    W = 20
+    rng = np.random.default_rng(len(sizes))
+    pieces = [rng.integers(0, 5, n).astype(np.uint8) for n in sizes]
+    want = list(jax_sketch._iter_chunks(iter(pieces), block, W))
+    with sketch._staging(CPU, block) as st:
+        got = [(g, st.host[slot][:n].copy())
+               for g, n, slot in sketch._assemble(iter(pieces), block, W, st)]
+    assert [g for g, _ in got] == [g for g, _ in want]
+    for (_, a), (_, b) in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,total", [(1, 16), (1000, 1024), (4096, 4096),
+                                     (70_001, 1 << 17)])
+def test_pack2_torch_matches_pack2(n, total):
+    """The device packer (run here on CPU tensors) gives the host
+    packer's words: BREAK as code 0, zeros past n."""
+    sym = np.random.default_rng(n).integers(0, 5, n).astype(np.uint8)
+    got = sketch.pack2_torch(torch.from_numpy(sym), total)
+    assert got.dtype == torch.int32 and got.numel() == total // 16
+    np.testing.assert_array_equal(got.numpy(), sketch.pack2(sym, total).view(np.int32))

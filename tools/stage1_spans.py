@@ -1,0 +1,286 @@
+"""Where a stage I call spends its host time, span by span.
+
+Runs the benchmark's stage I call (``bench_torch``'s cell
+``stage1_L3K10_128x5.3Mb``: 128 gzip genomes of 5.3 Mb, L3K10) with
+``--profile`` in fresh processes and reads each trace:
+
+* ``self_ms``: for every ``record_function`` span name of the main
+  thread (the ``TracedStageTimer`` stages and the sketch stream's
+  ``sketch.*`` spans), the time inside it and in none of its children;
+* the trace's idle share and longest idle gaps (``bench_torch.trace.
+  read_trace``), and for each gap the milliseconds of it under each
+  innermost span (``under``);
+* the stage times that the call logged.
+
+``--clock N`` also times N unprofiled calls in this process with the
+spans read on the host clock (``record_function`` replaced by a
+``perf_counter`` stack while they run: no profiler, so no per-op
+overhead); the parse pool's own floor: the seconds
+``pipeline.parsed_streams`` takes to parse every genome with nothing
+consuming its output but the loop; and the stream's own cost: the
+genomes parsed first, then sketched group by group
+(``ops.sketch.sketch_codes_multi`` over stage I's 64 MB groups) with no
+parse thread running, its spans on the host clock.
+
+Run from the checkout's root, on a card::
+
+    python3 tools/stage1_spans.py [--calls 2] [--clock 5] [--seed N] [--out FILE]
+
+One JSON line per profiled call (and one for the clocked calls) on
+stdout, the last line a summary with the device name; ``--out`` also
+writes them to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from bench_torch import data  # noqa: E402
+from bench_torch.run import SEED, STAGE1, device_names, genomes, run_cli  # noqa: E402
+from bench_torch.trace import STAGE_WALL, load_trace, read_trace  # noqa: E402
+
+
+def innermost(events: list[dict], tid) -> list[tuple[float, float, str]]:
+    """(start, end, name) pieces of thread ``tid``'s timeline, each named
+    by the innermost ``user_annotation`` span open there."""
+    spans = sorted(
+        ((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+         for e in events
+         if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+         and e.get("tid") == tid),
+        key=lambda s: (s[0], -s[1]),
+    )
+    out: list[tuple[float, float, str]] = []
+    stack: list[tuple[float, float, str]] = []
+    t = None
+
+    def emit(upto: float) -> None:
+        if stack and t is not None and upto > t:
+            out.append((t, upto, stack[-1][2]))
+
+    for s, e, name in spans:
+        while stack and stack[-1][1] <= s:
+            emit(stack[-1][1])
+            t = stack.pop()[1]
+        emit(s)
+        stack.append((s, e, name))
+        t = s
+    while stack:
+        emit(stack[-1][1])
+        t = stack.pop()[1]
+    return out
+
+
+def main_tid(events: list[dict]):
+    """The thread whose ``user_annotation`` spans cover the most time:
+    the CLI's main thread."""
+    cover: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            cover[e.get("tid")] = cover.get(e.get("tid"), 0.0) + float(e["dur"])
+    return max(cover, key=cover.get)
+
+
+def breakdown(events: list[dict], n_gaps: int = 5) -> dict:
+    pieces = innermost(events, main_tid(events))
+    self_us: dict[str, float] = {}
+    for s, e, name in pieces:
+        self_us[name] = self_us.get(name, 0.0) + e - s
+    rt = read_trace(events, top=n_gaps)
+    t0 = min(float(e["ts"]) for e in events if e.get("ph") == "X" and "dur" in e)
+    for gap in rt["gaps"]:
+        a = t0 + gap["start_ms"] * 1e3
+        b = a + gap["ms"] * 1e3
+        under: dict[str, float] = {}
+        for s, e, name in pieces:
+            o = min(b, e) - max(a, s)
+            if o > 0:
+                under[name] = under.get(name, 0.0) + o / 1e3
+        covered = sum(under.values())
+        under["outside any span"] = gap["ms"] - covered
+        gap["under"] = dict(sorted(under.items(), key=lambda kv: -kv[1]))
+    return {
+        "self_ms": {n: us / 1e3 for n, us in sorted(self_us.items(), key=lambda kv: -kv[1])},
+        **rt,
+    }
+
+
+class HostClock:
+    """``record_function`` stand-in: the self seconds of every span name,
+    on the host clock."""
+
+    def __init__(self):
+        self.self_s: dict[str, float] = {}
+        self._stack: list[list] = []  # [name, start, child seconds]
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t = time.perf_counter()
+        self._stack.append([name, t, 0.0])
+        try:
+            yield
+        finally:
+            _, t0, child = self._stack.pop()
+            dt = time.perf_counter() - t0
+            self.self_s[name] = self.self_s.get(name, 0.0) + dt - child
+            if self._stack:
+                self._stack[-1][2] += dt
+
+
+def clocked_calls(argv: list[str], n: int) -> dict:
+    """n in-process calls of ``argv`` with the spans on the host clock:
+    the mean self seconds of each span a call, and each call's wall."""
+    import torch
+
+    clock = HostClock()
+    walls = []
+    real = torch.profiler.record_function
+    torch.profiler.record_function = clock
+    try:
+        for _ in range(n):
+            walls.append(run_cli(*argv)[0])
+            shutil.rmtree(argv[argv.index("-o") + 1])
+    finally:
+        torch.profiler.record_function = real
+    return {"walls_s": walls,
+            "self_s": {k: v / n for k, v in sorted(clock.self_s.items(),
+                                                   key=lambda kv: -kv[1])}}
+
+
+def parse_floor(refs: str, n: int) -> list[float]:
+    """Seconds the parse pool takes for every genome of ``refs``, n
+    times, with nothing but the loop consuming what it yields."""
+    from public_kssd_tpu_torch import infiles, pipeline
+
+    files = infiles.organize_infiles([refs])
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        for _item in pipeline.parsed_streams(files, pipeline.SketchOptions()):
+            pass
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def stream_alone(refs: str, shuf: str, device, n: int) -> dict:
+    """The sketch stream without the parse pool beside it: every genome
+    parsed first, then n passes of ``sketch_codes_multi`` over stage I's
+    groups of 64 MB of symbols; the mean seconds a pass and its spans'
+    self seconds on the host clock."""
+    import torch
+
+    from public_kssd_tpu_torch import formats, infiles, pipeline, shufspace
+    from public_kssd_tpu_torch.ops import sketch
+
+    files = infiles.organize_infiles([refs])
+    syms = [pipeline.parse_one(f, pipeline.SketchOptions()) for f in files]
+    groups, used = [[]], 0
+    for sym in syms:  # run_stage1's grouping
+        if groups[-1] and used >= 64 << 20:
+            groups.append([])
+            used = 0
+        groups[-1].append(sym)
+        used += sym.size
+    params, table = formats.read_shuf(shuf)
+    comp = shufspace.detect(params, table, device)
+    shuf_dev = sketch.as_shuf(table if comp is None else comp, device)
+    sketch.sketch_codes_multi(iter(groups[0]), shuf_dev, params, device=device)
+    clock = HostClock()
+    real = torch.profiler.record_function
+    torch.profiler.record_function = clock
+    walls = []
+    try:
+        for _ in range(n):
+            t = time.perf_counter()
+            for g in groups:
+                sketch.sketch_codes_multi(iter(g), shuf_dev, params, device=device)
+            walls.append(time.perf_counter() - t)
+    finally:
+        torch.profiler.record_function = real
+    return {"groups": len(groups), "walls_s": walls,
+            "self_s": {k: v / n for k, v in sorted(clock.self_s.items(),
+                                                   key=lambda kv: -kv[1])}}
+
+
+def profiled_call(argv: list[str], trace_dir: str, timeout: float) -> dict:
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "public_kssd_tpu_torch.cli", *argv,
+         "--profile", trace_dir],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"kssd_torch exited {r.returncode}: {r.stderr[-2000:]}")
+    logged = [line for line in r.stderr.splitlines() if STAGE_WALL.search(line)]
+    _, events = load_trace(trace_dir)
+    return {"fresh_process_s": wall, "logged": logged, **breakdown(events)}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--calls", type=int, default=2)
+    ap.add_argument("--clock", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=SEED)
+    ap.add_argument("--genomes", type=int, default=128)
+    ap.add_argument("--genome-bp", type=int, default=data.GENOME_BP)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--work", default=os.path.join(ROOT, "build", "stage1_spans"))
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    import torch
+
+    from public_kssd_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    kind, smi = device_names(device)
+    cache = os.path.join(ROOT, "build", "bench_torch",
+                         f"genomes_seed{args.seed}_{args.genomes}x{args.genome_bp}")
+    refs = genomes(cache, args.genomes, args.genome_bp, args.seed)
+    shutil.rmtree(args.work, ignore_errors=True)
+    os.makedirs(args.work)
+    shuf = os.path.join(args.work, "L3K10")
+    run_cli("shuffle", "-k", "10", "-s", "6", "-l", "3", "--seed", str(args.seed),
+            "-o", shuf)
+
+    def dist(out: str) -> list[str]:
+        return ["dist", "-r", refs, "-L", shuf + ".shuf", "-o", out,
+                "--no-dense-index", "--device", device.type]
+
+    run_cli(*dist(os.path.join(args.work, "warm")))  # builds the kernels
+    lines = []
+    for i in range(args.calls):
+        res = profiled_call(dist(os.path.join(args.work, f"p{i}")),
+                            os.path.join(args.work, f"trace{i}"), 900)
+        lines.append({"cell": STAGE1, "call": i, **res})
+        print(json.dumps(lines[-1]), flush=True)
+    if args.clock:
+        res = clocked_calls(dist(os.path.join(args.work, "c")), args.clock)
+        res["parse_pool_s"] = parse_floor(refs, args.clock)
+        res["stream_alone"] = stream_alone(refs, shuf + ".shuf", device, args.clock)
+        lines.append({"cell": STAGE1, "clocked_calls": args.clock, **res})
+        print(json.dumps(lines[-1]), flush=True)
+    lines.append({"device": kind, "gpu": smi, "torch": torch.__version__,
+                  "seed": args.seed, "genomes": args.genomes})
+    print(json.dumps(lines[-1]), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.writelines(json.dumps(x) + "\n" for x in lines)
+    shutil.rmtree(args.work)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
