@@ -62,7 +62,11 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               through the CLI; distance.out byte-equal to --cpu-count and
               to dist -p 1 (the print on one thread); the print stage
               logged with its thread count (dist -p's default: every CPU
-              the process may use)
+              the process may use); first, the %.6lf and %E field writers
+              of native/kssd_print.c against this host's snprintf on
+              10^7 seeded doubles and the corner list
+              (native.field_values), no difference allowed, with the share
+              of values that took snprintf
   6. wide main path at L3K12 (k=12 s=6 l=3: 36-bit codes, 256
               components): 16 reference and 4 query genomes of 5.3 Mb
               through the CLI (stage II with --no-dense-index);
@@ -169,6 +173,7 @@ GTDB_REFS, GTDB_SKETCH = 65_702, 300  # synthdb.py: GTDB species groups
 # phase's 66.5 s on an H100's host (one searchsorted of all 19.7M DB
 # codes per sample; PERF.md)
 GTDB_SAMPLES, GTDB_SAMPLE_CODES = 8, 200_000
+FIELD_VALUES = 10_000_000  # phase 5: doubles through the print's field writers
 
 
 def log(msg: str) -> None:
@@ -1061,10 +1066,41 @@ def check_detect(path: str) -> None:
         f"numpy; " + "; ".join(times))
 
 
-def phase_search_heavy(work: str, synth) -> None:
+def check_field_writers(smi: str) -> None:
+    """native/kssd_print.c's %.6lf and %E field writers against this
+    host's snprintf on FIELD_VALUES seeded doubles and the corner list,
+    in chunks over every usable CPU; raises on any difference."""
+    from public_kssd_tpu_torch import native
+    from public_kssd_tpu_torch.ops import stats as stats_ops
+
+    if native.get_lib() is None:  # built once, before the threads share it
+        raise AssertionError("the native host library did not build")
+    values = native.field_values(FIELD_VALUES, SEED)
+    threads = stats_ops.print_threads(0)
+    chunks = np.array_split(values, 4 * threads)
+    starts = np.cumsum([0] + [c.size for c in chunks[:-1]])
+    with ThreadPoolExecutor(threads) as pool:
+        for fmt in native.FIELD_KINDS:
+            t = time.perf_counter()
+            res = list(pool.map(lambda c: native.check_fields(c, fmt), chunks))
+            bad = [int(i + b) for (b, _), i in zip(res, starts) if b >= 0]
+            if bad:
+                x = float(values[bad[0]])
+                raise AssertionError(f"{fmt} of {x!r}: native "
+                                     f"{native.format_field(x, fmt)[0]!r} differs "
+                                     f"from snprintf (Python's: {fmt % x!r})")
+            slow = sum(n for _, n in res)
+            log(f"[search-heavy] field writer {fmt}: {values.size} doubles equal to "
+                f"snprintf's text ({time.perf_counter() - t:.2f} s on {threads} "
+                f"threads, snprintf included); {slow} ({slow / values.size:.4%}) "
+                f"went through snprintf; {smi}")
+
+
+def phase_search_heavy(work: str, synth, smi: str) -> None:
     from bench_torch import run as bench
     from public_kssd_tpu_torch.ops import stats as stats_ops
 
+    check_field_writers(smi)
     ref_codes, qry = synth
     qry_rows = qry.reshape(SYNTH_QRYS, SYNTH_SKETCH)
     sref, sqry, t_index = bench.search_dirs(work, ref_codes, qry_rows, "cuda")
@@ -1084,11 +1120,11 @@ def phase_search_heavy(work: str, synth) -> None:
         f"formula (bench_torch/oracle.py, {time.perf_counter() - t:.1f} s); index "
         f"{t_index:.3f} s; search {pairs / t_search:.1f} pairs/s ({t_search:.3f} s, "
         f"CLI wall incl. index load and distance.out print); --cpu-count "
-        f"{t_cpu:.3f} s")
+        f"{t_cpu:.3f} s; {smi}")
     log(f"[search-heavy] print stage {stages['print']:.3f} s on "
         f"{stats_ops.print_threads(0)} threads (dist -p default: the CPUs of "
         f"sched_getaffinity; os.cpu_count() {os.cpu_count()}); with -p 1: print "
-        f"{one['print']:.3f} s, wall {t_one:.3f} s")
+        f"{one['print']:.3f} s, wall {t_one:.3f} s; {smi}")
 
 
 def phase_wide(work: str) -> dict[str, float]:
@@ -1663,7 +1699,7 @@ def main() -> int:
     for k in kernels.ALL:  # count only what each main path launches
         k.launches = 0
     phase_sketch_heavy(work)
-    phase_search_heavy(work, synth)
+    phase_search_heavy(work, synth, smi)
     launches = {k.name: k.launches for k in (kernels.sketch_kernel, kernels.count_kernel)}
     for k in kernels.ALL:
         k.launches = 0

@@ -108,6 +108,16 @@ def get_lib():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
         u8p, ctypes.c_int64,
     ]
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.kssd_fmt_field.restype = ctypes.c_int
+    lib.kssd_fmt_field.argtypes = [ctypes.c_double, ctypes.c_int, ctypes.c_char_p,
+                                   ctypes.POINTER(ctypes.c_int)]
+    lib.kssd_fmt_check.restype = ctypes.c_int64
+    lib.kssd_fmt_check.argtypes = [f64p, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_int64)]
+    lib.kssd_pow10_dd.restype = ctypes.c_int
+    lib.kssd_pow10_dd.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+                                  ctypes.POINTER(ctypes.c_double)]
     _lib = lib
     return _lib
 
@@ -269,6 +279,82 @@ def dist_rows_buf(
         if n <= buf.size:
             return buf, n
         buf = np.empty(n, np.uint8)
+
+
+# the field writers of kssd_print.c, by the printf conversion they give
+FIELD_KINDS = {"%.6f": 0, "%E": 1}
+
+
+def format_field(x: float, fmt: str) -> tuple[str, bool]:
+    """One distance.out float field as the native formatter writes it
+    (``fmt`` ``"%.6f"`` or ``"%E"``), and whether it went through
+    snprintf."""
+    out = ctypes.create_string_buffer(512)
+    slow = ctypes.c_int()
+    n = get_lib().kssd_fmt_field(float(x), FIELD_KINDS[fmt], out, ctypes.byref(slow))
+    return out.raw[:n].decode(), bool(slow.value)
+
+
+def check_fields(values: np.ndarray, fmt: str) -> tuple[int, int]:
+    """The native field writer for ``fmt`` against this process's libc
+    snprintf on every value: the index of the first value whose text
+    differs (-1: none) and how many values went through snprintf. Drops
+    the GIL: callers may split the values over threads."""
+    values = np.ascontiguousarray(values, np.float64)
+    slow = ctypes.c_int64()
+    bad = get_lib().kssd_fmt_check(values, values.size, FIELD_KINDS[fmt],
+                                   ctypes.byref(slow))
+    return int(bad), slow.value
+
+
+# doubles on the float fields' edges: signed zeros and tiny negatives
+# ("-0.000000"), exact ties at the sixth decimal (odd/128) and at the
+# seventh digit, carries into the next digit or exponent, the ends of
+# the exact paths (|x| * 1e6 = 2^53; %E's exact powers 10^0..10^22 and
+# 1e-300), subnormals and the non-finite values
+FIELD_CORNERS = (
+    0.0, -0.0, -1e-7, -4e-7, -5e-7, -1e-300, -5e-324, 5e-7, 1.5e-6, 2.5e-6,
+    0.9999995, float(np.nextafter(0.9999995, 2)), float(np.nextafter(0.9999995, 0)),
+    9.9999995e-05, float(np.nextafter(9.9999995e-05, 1)), 9.99999949e-05,
+    1 / 128, 3 / 128, 5 / 128, 127 / 128, 129 / 128, 0.5, 1.0, 1.96, -0.0234375,
+    2**53 / 1e6, float(np.nextafter(2**53 / 1e6, 0)), float(np.nextafter(2**53 / 1e6, 1e300)),
+    2**52 / 1e6 + 0.5e-6, 12345675.0, 12345665.0, 9999999.5, 99999995.0, 1e7, 1e-16,
+    float(np.nextafter(1e-16, 0)), 1e-5, 9.9999995e-6, 1e22, 1e23, 1e28, 1e29,
+    1.2345675e-20, 1e-300, float(np.nextafter(1e-300, 0)), 1e-310, 5e-324,
+    2.2250738585072014e-308, 1.7976931348623157e308, -1.7976931348623157e308,
+    -4503599524020271.0, float("inf"), float("-inf"), float("nan"), -float("nan"),
+)
+
+
+def field_values(n: int, seed: int) -> np.ndarray:
+    """FIELD_CORNERS, then ``n`` doubles made from ``seed``, about a sixth
+    each: uniform in [0, 1) (m, dist, the CIs), log-uniform over
+    [1e-300, 1e10) (p-values and their products), exact ties k/128,
+    the midpoints between six-decimal values and their neighbours,
+    integers below 10^8 (ties at the seventh digit) and random bit
+    patterns (every class of double); half of them negated."""
+    rng = np.random.default_rng(seed)
+    part = -(-n // 6)
+    mid = (rng.integers(0, 10**7, part) + 0.5) / 1e6
+    parts = [
+        rng.random(part),
+        10.0 ** rng.uniform(-300, 10, part),
+        rng.integers(0, 2**17, part) / 128,
+        np.nextafter(mid, rng.choice([-np.inf, np.inf], part)),
+        rng.integers(0, 10**8, part).astype(np.float64),
+        rng.integers(0, 2**64, part, dtype=np.uint64, endpoint=False).view(np.float64),
+    ]
+    x = np.concatenate(parts)[:n]
+    x.view(np.uint64)[rng.random(n) < 0.5] ^= np.uint64(1 << 63)  # the sign bit
+    return np.concatenate([np.array(FIELD_CORNERS), x])
+
+
+def pow10_dd(k: int) -> tuple[float, float]:
+    """The formatter's double-double 10^k (hi, lo), k in [0, 308]."""
+    hi, lo = ctypes.c_double(), ctypes.c_double()
+    if not get_lib().kssd_pow10_dd(k, ctypes.byref(hi), ctypes.byref(lo)):
+        raise ValueError(f"10^{k}: k in [0, 308] expected")
+    return hi.value, lo.value
 
 
 def pack2(symbols: np.ndarray, total: int) -> np.ndarray | None:

@@ -171,7 +171,7 @@ def print_threads(threads: int = 0) -> int:
 PRINT_BUFFER_BYTES = 256 << 20
 BLOCKS_PER_THREAD = 8
 # a line's bytes beside its two names, rounded up: four uint32s and up
-# to eight printf'd doubles of the values a count can give; a block
+# to eight formatted doubles of the values a count can give; a block
 # whose values print longer (a huge corrected m) grows its buffer
 LINE_BYTES = 160
 
@@ -201,11 +201,17 @@ def _write_native(path, counts, ref_sizes, qry_sizes, ref_names, qry_names,
     (native/kssd_print.c): blocks of lines format on ``threads`` threads
     (the ctypes call drops the GIL) into per-block buffers, and this
     thread writes them in query order after the header, while the later
-    blocks format. At most 2 x ``threads`` blocks are in flight."""
+    blocks format. At most 2 x ``threads`` blocks are in flight. The
+    main thread's wait for each block and its write are the spans
+    ``print.wait`` and ``print.write`` (``tools/print_spans.py``)."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
+    import torch
+
     from public_kssd_tpu_torch import native
+
+    span = torch.profiler.record_function
 
     n_qry, n_ref = counts.shape
     cmprsn_num = float(n_ref * n_qry)
@@ -243,8 +249,10 @@ def _write_native(path, counts, ref_sizes, qry_sizes, ref_names, qry_names,
         pending, free = deque(), [None] * (2 * threads)
 
         def write_first():
-            buf, n = pending.popleft().result()
-            f.write(memoryview(buf)[:n])
+            with span("print.wait"):
+                buf, n = pending.popleft().result()
+            with span("print.write"):
+                f.write(memoryview(buf)[:n])
             free.append(buf)
 
         try:
@@ -275,8 +283,12 @@ def write_distance_out(
     returns the threads that formatted it.
 
     The lines are formatted by the NATIVE block formatter
-    (native/kssd_print.c) when available — same libm/printf as the
-    reference build, so it is reference-exact by construction — on
+    (native/kssd_print.c) when available — the reference build's libm
+    arithmetic, and each field written by hand with the bytes glibc's
+    printf gives: the float fields rounded half to even from the exact
+    value (fma two-products), snprintf itself for the rare value an
+    exact path cannot decide (tests/test_torch_print.py holds the field
+    writers against snprintf and Python's formatting) — on
     ``threads`` threads (``dist -p``; 0 = every CPU this process may
     use), and written in query order: the bytes do not depend on the
     thread count. ``counts`` may be a ``np.memmap`` (``-m``). Python
