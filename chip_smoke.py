@@ -62,7 +62,11 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               through the CLI; distance.out byte-equal to --cpu-count and
               to dist -p 1 (the print on one thread); the print stage
               logged with its thread count (dist -p's default: every CPU
-              the process may use); first, the %.6lf and %E field writers
+              the process may use), and the count stage with its spans
+              (count.queries, count.index, count.kernel, count.fetch,
+              count.skf; on the host clock, as tools/print_spans.py
+              --clock reads them) and no sharedk_ct.dat written (no
+              --keepskf, no -m); first, the %.6lf and %E field writers
               of native/kssd_print.c against this host's snprintf on
               10^7 seeded doubles and the corner list
               (native.field_values), no difference allowed, with the share
@@ -1097,14 +1101,26 @@ def check_field_writers(smi: str) -> None:
 
 
 def phase_search_heavy(work: str, synth, smi: str) -> None:
+    import torch
+
     from bench_torch import run as bench
     from public_kssd_tpu_torch.ops import stats as stats_ops
+    from tools.stage1_spans import HostClock
 
     check_field_writers(smi)
     ref_codes, qry = synth
     qry_rows = qry.reshape(SYNTH_QRYS, SYNTH_SKETCH)
     sref, sqry, t_index = bench.search_dirs(work, ref_codes, qry_rows, "cuda")
-    t_search, stages = bench.run_cli("dist", "-r", sref, "-o", f"{work}/sout", sqry)
+    # the search's spans on the host clock (tools/print_spans.py --clock)
+    clock = HostClock()
+    real_span = torch.profiler.record_function
+    torch.profiler.record_function = clock
+    try:
+        t_search, stages = bench.run_cli("dist", "-r", sref, "-o", f"{work}/sout", sqry)
+    finally:
+        torch.profiler.record_function = real_span
+    if os.path.exists(f"{work}/sout/sharedk_ct.dat"):
+        raise AssertionError("a search without --keepskf or -m wrote sharedk_ct.dat")
     t_cpu = run_cli("dist", "-r", sref, "-o", f"{work}/sout_cpu", "--cpu-count", sqry)
     size = same_bytes(f"{work}/sout/distance.out", f"{work}/sout_cpu/distance.out")
     t_one, one = bench.run_cli("dist", "-r", sref, "-o", f"{work}/sout_p1", "-p", "1",
@@ -1121,13 +1137,18 @@ def phase_search_heavy(work: str, synth, smi: str) -> None:
         f"{t_index:.3f} s; search {pairs / t_search:.1f} pairs/s ({t_search:.3f} s, "
         f"CLI wall incl. index load and distance.out print); --cpu-count "
         f"{t_cpu:.3f} s; {smi}")
+    spans = {k: round(v, 6) for k, v in clock.self_s.items()
+             if k == "count" or k.startswith("count.")}
+    log(f"[search-heavy] count stage {stages['count']:.3f} s (load_index "
+        f"{stages['load_index']:.3f} s); its spans' self seconds on the host "
+        f"clock: {spans}; {smi}")
     log(f"[search-heavy] print stage {stages['print']:.3f} s on "
         f"{stats_ops.print_threads(0)} threads (dist -p default: the CPUs of "
         f"sched_getaffinity; os.cpu_count() {os.cpu_count()}); with -p 1: print "
         f"{one['print']:.3f} s, wall {t_one:.3f} s; {smi}")
 
 
-def phase_wide(work: str) -> dict[str, float]:
+def phase_wide(work: str, smi: str) -> dict[str, float]:
     """Returns the search's stage times; keeps ref/, qry/ and out/ under
     work/wide for phase 8b."""
     from public_kssd_tpu_torch import formats, utils
@@ -1189,11 +1210,12 @@ def phase_wide(work: str) -> dict[str, float]:
         f"{N_WIDE_REFS * mb / t_ref:.2f} Mbases/s ({t_ref:.3f} s CLI wall); "
         f"stage I timer {wall1:.3f} s ({N_WIDE_REFS / wall1:.3f} genomes/s), "
         f"dedup {stage1.get('dedup', 0.0):.3f} s = share "
-        f"{stage1.get('dedup', 0.0) / wall1:.3f} [{stage1}]")
+        f"{stage1.get('dedup', 0.0) / wall1:.3f} [{stage1}]; {smi}")
     log(f"[wide] stage I queries {t_qry:.3f} s; search "
         f"{N_WIDE_QRYS * N_WIDE_REFS} pairs in {t_search:.3f} s CLI wall, count "
-        f"stage {search_stages.get('count', 0.0):.3f} s over {comps} components "
-        f"[{search_stages}]; --cpu-count {t_cpu:.3f} s")
+        f"stage {search_stages.get('count', 0.0):.3f} s over {comps} components, "
+        f"summed on the card and fetched once [{search_stages}]; --cpu-count "
+        f"{t_cpu:.3f} s; {smi}")
     for d in (ref_dir, qry_dir, two, f"{root}/two_cuda", f"{root}/two_cpu"):
         shutil.rmtree(d)
     return search_stages
@@ -1703,7 +1725,7 @@ def main() -> int:
     launches = {k.name: k.launches for k in (kernels.sketch_kernel, kernels.count_kernel)}
     for k in kernels.ALL:
         k.launches = 0
-    wide_stages = phase_wide(work)
+    wide_stages = phase_wide(work, smi)
     wide = {k.name: k.launches for k in kernels.ALL}
     log(f"[wide] launches on this path: {wide}")
     launches["sketch_wide"] = wide["sketch_wide"]

@@ -20,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -36,6 +37,9 @@ _CFLAGS = ["-O3", "-shared", "-fPIC"]
 
 _lib = None
 _tried = False
+# held while get_lib builds and loads: a caller that arrives meanwhile
+# waits for that attempt and gets its result
+_LOCK = threading.Lock()
 
 
 def _so_path() -> str:
@@ -61,11 +65,23 @@ def _build(so: str) -> bool:
 
 
 def get_lib():
-    """The loaded library, or None if unavailable."""
+    """The loaded library, or None if unavailable. Thread-safe: the
+    first caller builds and loads it under ``_LOCK``, and a caller that
+    arrives during that attempt waits for it; ``_tried`` is set only once
+    the attempt has finished."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
+    with _LOCK:
+        if not _tried:
+            _lib = _load()
+            _tried = True
+    return _lib
+
+
+def _load():
+    """Build (when its file is missing) and bind the library; None when
+    it cannot be had."""
     if not all(os.path.isfile(src) for src in _SOURCES):
         return None
     so = _so_path()
@@ -118,8 +134,7 @@ def get_lib():
     lib.kssd_pow10_dd.restype = ctypes.c_int
     lib.kssd_pow10_dd.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_double),
                                   ctypes.POINTER(ctypes.c_double)]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def fasta_to_codes(raw: bytes) -> np.ndarray | None:

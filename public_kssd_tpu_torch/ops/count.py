@@ -52,9 +52,21 @@ _M32 = 0xFFFFFFFF
 _SIGN64 = -(1 << 63)  # int64 with only the sign bit set
 
 
+def _int_view(a: np.ndarray, width: int) -> torch.Tensor:
+    """``a``'s integers as a CPU int32 (``width`` 4) or int64 (8) tensor:
+    a zero-copy view of its memory where it already holds native integers
+    of that width (unsigned ones as their signed bit patterns), else a
+    converted copy."""
+    a = np.asarray(a)
+    signed = np.dtype(f"i{width}")
+    if a.dtype.kind in "iu" and a.dtype.itemsize == width and a.dtype.isnative:
+        return torch.from_numpy(np.ascontiguousarray(a).view(signed))
+    return torch.from_numpy(a.astype(signed))
+
+
 def _u32_view(a: np.ndarray) -> torch.Tensor:
     """uint32 numpy array -> int32 tensor with the same bits (CPU)."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype="<u4").view(np.int32))
+    return _int_view(a, 4)
 
 
 def _widen(t: torch.Tensor) -> torch.Tensor:
@@ -76,11 +88,7 @@ def _ordered(t: torch.Tensor) -> torch.Tensor:
 def _key_view(a: np.ndarray) -> torch.Tensor:
     """uint32 codes or uint64 keys -> an int32 / int64 tensor with the
     same bits (CPU)."""
-    if a.dtype.itemsize == 8:
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype="<u8").view(np.int64)
-        )
-    return _u32_view(a)
+    return _int_view(a, 8 if a.dtype.itemsize == 8 else 4)
 
 
 def bucket_directory(uniq: torch.Tensor, max_key: int,
@@ -159,13 +167,22 @@ class DeviceIndex:
                     device: torch.device) -> "DeviceIndex":
         """Upload a host CSR: ``uniq`` ascending uint32 codes or uint64
         keys (its dtype picks the kernel instance), ``offsets`` [nnz+1],
-        ``gids`` column ids; and build its bucket directory there."""
+        ``gids`` column ids; and build its bucket directory there.
+
+        8-byte ``offsets`` and 4-byte ``gids`` (the index files' ``<u8``
+        and ``<u4``) go up through zero-copy signed views of their memory,
+        so the host copies nothing; other dtypes are converted first."""
         device = resolve_device(device)
         offs = np.asarray(offsets)
         if offs.size and int(offs[-1]) >= 1 << 63:
             raise ValueError("postings total does not fit int64")
         gids = np.asarray(gids)
-        if gids.size and int(gids.max()) >= 1 << 31:
+        # a wider dtype is checked before it is narrowed; 4-byte ids on
+        # the device, where uint32 ids >= 2^31 read as negative int32
+        if gids.dtype.itemsize > 4 and gids.size and int(gids.max()) >= 1 << 31:
+            raise ValueError("genome ids must be < 2^31")
+        gids_dev = _int_view(gids, 4).to(device)
+        if gids_dev.numel() and bool(gids_dev.min() < 0):
             raise ValueError("genome ids must be < 2^31")
         uniq = np.asarray(uniq)
         host_keys = _key_view(uniq)
@@ -180,8 +197,8 @@ class DeviceIndex:
         )
         return cls(
             uniq=keys,
-            offsets=torch.from_numpy(offs.astype(np.int64)).to(device),
-            gids=torch.from_numpy(gids.astype(np.int32)).to(device),
+            offsets=_int_view(offs, 8).to(device),
+            gids=gids_dev,
             n_ref=int(n_ref),
             device=device,
             dir=directory.to(device),
@@ -426,6 +443,51 @@ def _segments(qry_index: np.ndarray, n_codes: int,
     return torch.from_numpy(seg).to(index.device)
 
 
+def count_shared_tensors(
+    qry_codes: np.ndarray,
+    qry_index: np.ndarray,
+    sparse_index,
+    n_qry: int,
+    device: torch.device | None = None,
+    qry_weights: np.ndarray | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """One component's counts of all queries, left where they were made:
+    (int32 [n_qry, n_ref] bit view of the uint32 shared-code counts,) and,
+    with ``qry_weights`` (uint32, one a query code), the int64 bit view of
+    the uint64 abundance-weighted sums beside it. ``device=None`` runs
+    the host oracle (CPU tensors over its arrays); a device runs
+    ``count_shared_kernel`` / ``count_shared_koc_kernel`` on it, one walk
+    of the index for both matrices. Sums of these bit views over
+    components wrap as the unsigned sums do."""
+    shape = (n_qry, sparse_index.n_genomes)
+    if device is None:
+        args = (qry_codes, qry_index, sparse_index.uniq_codes,
+                sparse_index.offsets, sparse_index.gids, n_qry, shape[1])
+        out = (count_shared_np(*args),)
+        if qry_weights is not None:
+            out += (count_shared_weighted_np(*args[:2], qry_weights, *args[2:]),)
+        return tuple(torch.from_numpy(a.view(f"i{a.itemsize}")) for a in out)
+    if qry_codes.size == 0:
+        device = resolve_device(device)
+        out = (torch.zeros(shape, dtype=torch.int32, device=device),)
+        if qry_weights is not None:
+            out += (torch.zeros(shape, dtype=torch.int64, device=device),)
+        return out
+    span = torch.profiler.record_function
+    with span("count.index"):
+        index = DeviceIndex.from_sparse(sparse_index, device)
+    with span("count.queries"):
+        qc = _u32_view(qry_codes).to(index.device)
+        qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
+        seg = _segments(qry_index, qry_codes.size, index)
+        if qry_weights is not None:
+            qw = _u32_view(qry_weights).to(index.device)
+    with span("count.kernel"):
+        if qry_weights is None:
+            return (count_shared_kernel(qc, qq, index, n_qry, seg),)
+        return count_shared_koc_kernel(qc, qq, qw, index, n_qry, seg)
+
+
 def count_shared(
     qry_codes: np.ndarray,
     qry_index: np.ndarray,
@@ -436,22 +498,8 @@ def count_shared(
     """Count shared k-mers of all queries against one component's index
     -> uint32 [n_qry, n_ref]. ``device=None`` runs the host oracle; a
     device runs ``count_shared_kernel`` on it."""
-    n_ref = sparse_index.n_genomes
-    if device is None or qry_codes.size == 0:
-        return count_shared_np(
-            qry_codes,
-            qry_index,
-            sparse_index.uniq_codes,
-            sparse_index.offsets,
-            sparse_index.gids,
-            n_qry,
-            n_ref,
-        )
-    index = DeviceIndex.from_sparse(sparse_index, device)
-    qc = _u32_view(qry_codes).to(index.device)
-    qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
-    seg = _segments(qry_index, qry_codes.size, index)
-    counts = count_shared_kernel(qc, qq, index, n_qry, seg)
+    (counts,) = count_shared_tensors(qry_codes, qry_index, sparse_index,
+                                     n_qry, device)
     return counts.cpu().numpy().view(np.uint32)
 
 
@@ -468,19 +516,8 @@ def count_shared_koc(
     queries against one component -> (uint32, uint64) [n_qry, n_ref].
     ``device=None`` runs the host oracle; a device runs
     ``count_shared_koc_kernel`` on it: one walk for both matrices."""
-    if device is None or qry_codes.size == 0:
-        args = (qry_codes, qry_index, sparse_index.uniq_codes,
-                sparse_index.offsets, sparse_index.gids, n_qry,
-                sparse_index.n_genomes)
-        return count_shared_np(*args), count_shared_weighted_np(
-            *args[:2], qry_weights, *args[2:]
-        )
-    index = DeviceIndex.from_sparse(sparse_index, device)
-    qc = _u32_view(qry_codes).to(index.device)
-    qq = torch.from_numpy(query_ids(qry_index, qry_codes.size)).to(index.device)
-    qw = _u32_view(qry_weights).to(index.device)
-    seg = _segments(qry_index, qry_codes.size, index)
-    counts, weighted = count_shared_koc_kernel(qc, qq, qw, index, n_qry, seg)
+    counts, weighted = count_shared_tensors(qry_codes, qry_index, sparse_index,
+                                            n_qry, device, qry_weights)
     return (counts.cpu().numpy().view(np.uint32),
             weighted.cpu().numpy().view(np.uint64))
 

@@ -52,40 +52,41 @@ def compute_shared_counts(
 ) -> np.ndarray:
     """Sum shared-code counts across components -> uint32 [n_qry, n_ref].
 
-    ``device`` runs the counting there (``None``: the host oracle).
-    ``counts_out`` (e.g. a np.memmap over sharedk_ct.dat) bounds host RAM
-    the way the reference's mmap does; ``batch`` bounds the query rows
-    materialised per device call; ``koc_out`` additionally accumulates
-    abundance-weighted counts from the query ``.a`` files, in the same
-    walk of the index (``count_ops.count_shared_koc``).
+    ``device`` runs the counting there (``None``: the host oracle); each
+    batch of query rows is summed over the components where it was
+    counted and copied once into its rows of the result. ``counts_out``
+    (e.g. a np.memmap over sharedk_ct.dat) bounds host RAM the way the
+    reference's mmap does; ``batch`` bounds the query rows materialised
+    per device call; ``koc_out`` additionally receives abundance-weighted
+    counts from the query ``.a`` files, made in the same walk of the
+    index (``count_ops.count_shared_tensors``).
     """
     n_ref = ref_components[0].n_genomes
     counts = (
         counts_out
         if counts_out is not None
-        else np.zeros((n_qry, n_ref), dtype=np.uint32)
+        else np.empty((n_qry, n_ref), dtype=np.uint32)
     )
+    span = torch.profiler.record_function
+    with span("count.queries"):
+        sketches = [formats.read_combco(qry_dir, c, with_abund=koc_out is not None)
+                    for c in range(len(ref_components))]
     batch = batch or n_qry
-    for c, sp in enumerate(ref_components):
-        if koc_out is not None:
-            codes, idx, abund = formats.read_combco(qry_dir, c, with_abund=True)
-        else:
-            codes, idx = formats.read_combco(qry_dir, c)
-        for q0 in range(0, n_qry, batch):
-            q1 = min(q0 + batch, n_qry)
+    for q0 in range(0, n_qry, batch):
+        q1 = min(q0 + batch, n_qry)
+        total = None
+        for sp, (codes, idx, *abund) in zip(ref_components, sketches):
             lo, hi = int(idx[q0]), int(idx[q1])
-            sub_idx = idx[q0 : q1 + 1] - idx[q0]
-            if koc_out is None:
-                counts[q0:q1] += count_ops.count_shared(
-                    codes[lo:hi], sub_idx, sp, q1 - q0, device
-                )
-                continue
-            plain, weighted = count_ops.count_shared_koc(
-                codes[lo:hi], sub_idx, abund[lo:hi].astype(np.uint32),
-                sp, q1 - q0, device,
+            part = count_ops.count_shared_tensors(
+                codes[lo:hi], idx[q0 : q1 + 1] - idx[q0], sp, q1 - q0, device,
+                abund[0][lo:hi].astype(np.uint32) if abund else None,
             )
-            counts[q0:q1] += plain
-            koc_out[q0:q1] += weighted
+            # int32 / int64 bit views: the sums wrap as uint32 / uint64 do
+            total = part if total is None else [t.add_(p) for t, p in zip(total, part)]
+        with span("count.fetch"):
+            torch.from_numpy(counts[q0:q1].view(np.int32)).copy_(total[0])
+            if koc_out is not None:
+                torch.from_numpy(koc_out[q0:q1].view(np.int64)).copy_(total[1])
     return counts
 
 
@@ -108,11 +109,13 @@ def search(
 
     ``shared_kmer_path`` (-f) skips counting and reprints statistics from
     a saved sharedk_ct.dat matrix; ``keep_shared_kmer`` (--keepskf)
-    retains the matrix file after printing. ``mem_gb`` (-m) batches
-    queries through counting and disk-backs the count matrix so peak RAM
-    is bounded by the budget, not the DB size. ``device`` runs the
-    counting there (``None``: the host oracle). ``koc`` appends the
-    abundance-weighted table when the query dir carries ``.a`` files.
+    writes the matrix there and keeps it. ``mem_gb`` (-m) batches
+    queries through counting and disk-backs the count matrix (that file,
+    removed after printing unless kept) so peak RAM is bounded by the
+    budget, not the DB size; with neither, no file is written.
+    ``device`` runs the counting there (``None``: the host oracle).
+    ``koc`` appends the abundance-weighted table when the query dir
+    carries ``.a`` files.
     With ``mesh`` (a ``parallel.Mesh``; it takes the place of ``device``)
     counting runs DB-sharded over its devices by ``shard_strategy``
     ('genome' or 'code'), components folded into one key space.
@@ -152,7 +155,7 @@ def search(
             "sharedk_ct.dat): abundance-weighted counts are not stored "
             "in the shared-k matrix; rerun the full search with --koc-out"
         )
-    koc_counts = np.zeros((n_qry, n_ref), dtype=np.uint64) if koc else None
+    koc_counts = np.empty((n_qry, n_ref), dtype=np.uint64) if koc else None
     if shared_kmer_path:
         counts = np.fromfile(skf, dtype="<u4").reshape(n_qry, n_ref)
     else:
@@ -165,8 +168,8 @@ def search(
                 counts = np.memmap(
                     skf, dtype="<u4", mode="w+", shape=(n_qry, n_ref)
                 )
-            else:
-                counts = np.zeros((n_qry, n_ref), dtype=np.uint32)
+            else:  # every row is written whole
+                counts = np.empty((n_qry, n_ref), dtype=np.uint32)
             batch = query_batch_size(n_qry, n_ref, mem_gb)
             if mesh is not None:
                 from public_kssd_tpu_torch.parallel import sharded_search
@@ -192,10 +195,11 @@ def search(
                     qry_dir, comps, n_qry, device, counts_out=counts,
                     batch=batch, koc_out=koc_counts,
                 )
-            if isinstance(counts, np.memmap):
-                counts.flush()
-            else:
-                counts.astype("<u4").tofile(skf)
+            with torch.profiler.record_function("count.skf"):
+                if isinstance(counts, np.memmap):
+                    counts.flush()
+                elif keep_shared_kmer:
+                    counts.astype("<u4", copy=False).tofile(skf)
 
     out_path = os.path.join(out_dir, "distance.out")
     with timer.stage("print"):
@@ -226,8 +230,7 @@ def search(
             "[%s]",
             n_qry, n_ref, dt, pairs / dt if dt else 0.0, threads, timer.report(),
         )
-    if not keep_shared_kmer and not shared_kmer_path:
-        if isinstance(counts, np.memmap):
-            del counts
+    if isinstance(counts, np.memmap) and not keep_shared_kmer:
+        del counts  # -m's disk-backed matrix, not asked to be kept
         os.remove(skf)
     return out_path

@@ -128,6 +128,89 @@ def test_device_index_from_jax_sparse_index():
     )
 
 
+def _ptr(a: np.ndarray) -> int:
+    return a.__array_interface__["data"][0]
+
+
+@pytest.mark.parametrize(
+    "offs_dtype,gids_dtype,shared",
+    [
+        ("<u8", "<u4", True),  # the index files' dtypes
+        ("<i8", "<u4", True),  # a mesh shard's offsets (parallel/sharded_search)
+        ("<i8", "<i4", True),
+        ("<u4", "<i8", False),  # other widths are converted
+    ],
+)
+def test_device_index_views_host_memory(offs_dtype, gids_dtype, shared):
+    """from_arrays uploads 8-byte offsets and 4-byte genome ids through
+    zero-copy views (on the CPU the index then shares their memory), and
+    converts other dtypes; the counts equal the JAX package's."""
+    sp, ref, _ = _csr(50, 250, 13, hot=20)
+    qc, qidx = _queries(ref, 8, 250, 13)
+    offs, gids = sp.offsets.astype(offs_dtype), sp.gids.astype(gids_dtype)
+    idx = count.DeviceIndex.from_arrays(sp.uniq_codes, offs, gids, sp.n_genomes, CPU)
+    assert idx.offsets.dtype == torch.int64 and idx.gids.dtype == torch.int32
+    assert (idx.offsets.data_ptr() == _ptr(offs)) == shared
+    assert (idx.gids.data_ptr() == _ptr(gids)) == shared
+    assert idx.uniq.data_ptr() == _ptr(sp.uniq_codes)
+    got = count.count_shared_kernel(
+        count._u32_view(qc), torch.from_numpy(count.query_ids(qidx, qc.size)),
+        idx, 8,
+    )
+    want = jax_count.count_shared(qc, qidx, sp, 8, use_device=False)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize(
+    "case", ["offsets_2^63", "gids_2^31_u4", "gids_2^32_i8", "gids_negative_i4"],
+)
+def test_device_index_refuses_out_of_range(case):
+    """Postings totals past int64 and genome ids past int32 are refused,
+    whether the ids come up as views (4 bytes) or are narrowed (8 bytes:
+    2^32 would narrow to 0)."""
+    sp, _, _ = _csr(10, 50, 17)
+    offs, gids = sp.offsets.copy(), sp.gids.astype("<u4")
+    if case == "offsets_2^63":
+        offs[-1] = np.uint64(1 << 63)
+    elif case == "gids_2^31_u4":
+        gids[3] = np.uint32(1 << 31)
+    elif case == "gids_2^32_i8":
+        gids = gids.astype(np.int64)
+        gids[3] = 1 << 32
+    else:
+        gids = gids.astype(np.int32)
+        gids[3] = -1
+    with pytest.raises(ValueError, match="postings total" if "offsets" in case
+                       else "genome ids"):
+        count.DeviceIndex.from_arrays(sp.uniq_codes, offs, gids, sp.n_genomes, CPU)
+
+
+@pytest.mark.parametrize("koc", [False, True])
+@pytest.mark.parametrize("device", [CPU, None])
+@pytest.mark.parametrize("empty", [False, True])
+def test_count_shared_tensors_matches_jax(koc, device, empty):
+    """One component's counts left as tensors (int32 / int64 bit views)
+    equal the JAX package's uint32 counts and uint64 weighted sums; no
+    query codes give zeros of both dtypes."""
+    sp, ref, _ = _csr(40, 200, 19, hot=10)
+    qc, qidx = _queries(ref, 6, 200, 19)
+    if empty:
+        qc, qidx = qc[:0], np.zeros(7, np.uint64)
+    w = _weights(qc.size, 19)
+    got = count.count_shared_tensors(qc, qidx, sp, 6, device, w if koc else None)
+    assert [t.dtype for t in got] == [torch.int32, torch.int64][:1 + koc]
+    assert all(t.shape == (6, 40) and t.device == CPU for t in got)
+    want = jax_count.count_shared(qc, qidx, sp, 6, use_device=False)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32), want)
+    if koc:
+        np.testing.assert_array_equal(
+            got[1].numpy().view(np.uint64),
+            jax_count.count_shared_weighted(qc, qidx, w, sp, 6, use_device=False),
+        )
+    assert (want.sum() == 0) == empty
+
+
 def test_sort_u64_sign_safe():
     """Keys code<<32|gid with codes >= 2^31 sort as unsigned."""
     rng = np.random.default_rng(5)

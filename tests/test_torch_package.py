@@ -33,12 +33,14 @@ DIFFERING = {
     # dedup_counts run the sparse twins of native/kssd_dedup.c (the same
     # bytes; memory and work follow the stream, not hashsize) over a map
     # of the filled slots (_slot_map), built into the same library
-    # (_DEDUP_SRC, _SOURCES)
+    # (_DEDUP_SRC, _SOURCES); get_lib builds and loads (_load) under a
+    # lock (_LOCK), so a thread that calls it during another's build
+    # waits for that build and gets the library
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS", "_PRINT_SRC",
                         "Names", "dist_rows_buf", "dist_row",
                         "_DEDUP_SRC", "_SOURCES", "_slot_map",
-                        "dedup_slot_order", "dedup_counts"},
+                        "dedup_slot_order", "dedup_counts", "_load", "_LOCK"},
     # write_distance_out formats blocks of lines on -p threads through
     # native/kssd_print.c and writes them in query order (print_threads,
     # print_blocks, _write_native and their constants); its Python
@@ -230,6 +232,36 @@ def test_native_helper_builds_from_its_own_source():
     assert os.path.dirname(native._so_path()) == os.path.join(
         REPO, "build", "public_kssd_tpu_torch"
     )
+
+
+def test_native_helper_first_use_from_many_threads(tmp_path, monkeypatch):
+    """Eight threads reach get_lib() together on a build directory with
+    no library in it: the first builds, the rest wait for that build,
+    and every one gets the same loaded library (none gets None and a
+    slower fallback)."""
+    import threading
+
+    from public_kssd_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    assert not os.path.exists(native._so_path())
+    start = threading.Barrier(8)
+    got = [None] * 8
+
+    def call(i):
+        start.wait()
+        got[i] = native.get_lib()
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got[0] is not None and all(lib is got[0] for lib in got)
+    assert os.path.isfile(native._so_path())
+    assert got[0]._name == native._so_path()
 
 
 def _reads_jax_package(src: str) -> list[int]:

@@ -232,6 +232,65 @@ def test_koc_search_without_abundance_is_plain(slice7):
     assert_files_equal(f"{slice7}/distout/distance.out", out)
 
 
+@pytest.fixture(scope="module")
+def skf_jax(slice7):
+    """The JAX package's sharedk_ct.dat (--keepskf) of the golden queries
+    and of the fq_koc sketches."""
+    from public_kssd_tpu import search as jax_search
+
+    out = {}
+    for qry in ("torch_qry", "fq_koc"):
+        d = f"{slice7}/jax_skf_{qry}"
+        jax_search.search(f"{slice7}/torch_ref", f"{slice7}/{qry}", d,
+                          use_device=False, keep_shared_kmer=True)
+        out[qry] = f"{d}/sharedk_ct.dat"
+    return out
+
+
+@pytest.mark.parametrize(
+    "case,kwargs,during,kept",
+    [
+        ("plain", {}, False, False),
+        ("koc", dict(koc=True), False, False),
+        ("keepskf", dict(keep_shared_kmer=True), True, True),
+        ("koc_keepskf", dict(koc=True, keep_shared_kmer=True), True, True),
+        ("m", dict(mem_gb=1e-5), True, False),
+        ("m_keepskf", dict(mem_gb=1e-5, keep_shared_kmer=True), True, True),
+    ],
+)
+def test_search_writes_sharedk_only_when_kept(slice7, koc_jax, skf_jax, monkeypatch,
+                                              case, kwargs, during, kept):
+    """sharedk_ct.dat is written under --keepskf (the JAX package's
+    bytes) and is -m's disk-backed matrix; with neither it is never
+    written, so never removed. Seen from the print stage, which starts
+    after counting, and from every os.remove of the call."""
+    qry = "fq_koc" if kwargs.get("koc") else "torch_qry"
+    out = f"{slice7}/torch_skf_{case}"
+    seen, removed = [], []
+    write, remove = stats_ops.write_distance_out, os.remove
+
+    def spy_write(*args, **kw):
+        seen.append(os.path.isfile(f"{out}/sharedk_ct.dat"))
+        return write(*args, **kw)
+
+    def spy_remove(path, *args, **kw):
+        removed.append(os.path.basename(path))
+        return remove(path, *args, **kw)
+
+    monkeypatch.setattr(stats_ops, "write_distance_out", spy_write)
+    monkeypatch.setattr(os, "remove", spy_remove)
+    path = search.search(f"{slice7}/torch_ref", f"{slice7}/{qry}", out,
+                         device=CPU, **kwargs)
+    monkeypatch.undo()
+    assert seen == [during]
+    assert removed == (["sharedk_ct.dat"] if during and not kept else [])
+    assert os.path.isfile(f"{out}/sharedk_ct.dat") == kept
+    if kept:
+        assert_files_equal(skf_jax[qry], f"{out}/sharedk_ct.dat")
+    assert_files_equal(koc_jax if kwargs.get("koc") else
+                       f"{slice7}/distout/distance.out", path)
+
+
 # ---------------------------------------------------------------- CLI
 
 TUTORIAL_FILES = [
@@ -472,6 +531,48 @@ def test_cli_wide_outputs(wide_tutorial):
             assert counts[q].argmax() == r and counts[q, r] > counts[q].sum() // 2
     with open(f"{wide_tutorial}/torch/out/distance.out") as f:
         assert len(f.read().splitlines()) == 1 + 3 * 4
+
+
+@pytest.fixture(scope="module")
+def wide_koc(wide_tutorial, golden7):
+    """-A sketches of the golden fastq read sets at (11,6,3), searched
+    with --koc-out by the JAX package: its distance.out."""
+    from public_kssd_tpu import search as jax_search
+
+    params, perm = formats.read_shuf(f"{wide_tutorial}/torch/F.shuf")
+    qry = f"{wide_tutorial}/torch/qry_koc"
+    with _cd(golden7):
+        pipeline.run_stage1(["reads0.fq.gz", "reads1.fq.gz", "deep.fq.gz"], qry,
+                            params, perm, pipeline.SketchOptions(abundance=True),
+                            device=CPU)
+    jax_search.search(f"{wide_tutorial}/torch/ref", qry,
+                      f"{wide_tutorial}/jax/out_koc", use_device=False, koc=True)
+    return qry, f"{wide_tutorial}/jax/out_koc/distance.out"
+
+
+@pytest.mark.parametrize(
+    "case,kwargs",
+    [
+        ("plain", {}),
+        ("m", dict(mem_gb=1e-5)),
+        ("koc", dict(koc=True)),
+        ("koc_m", dict(koc=True, mem_gb=1e-5)),
+    ],
+)
+def test_wide_search_sums_components_like_jax(wide_tutorial, wide_koc, case, kwargs):
+    """16 components summed where they were counted, one copy a batch
+    (-m: one query a batch): distance.out byte-equal to kssd_tpu's, with
+    and without --koc-out."""
+    qry, want = ((*wide_koc,) if kwargs.get("koc") else
+                 (f"{wide_tutorial}/torch/qry",
+                  f"{wide_tutorial}/jax/out/distance.out"))
+    out = search.search(f"{wide_tutorial}/torch/ref", qry,
+                        f"{wide_tutorial}/torch/out_sum_{case}", device=CPU,
+                        **kwargs)
+    assert_files_equal(want, out)
+    if kwargs.get("koc"):
+        with open(out) as f:
+            assert len(f.read().splitlines()) == 1 + 2 * 3 * 4
 
 
 def _wide_params(k, s, l, csz=7):

@@ -15,10 +15,10 @@ Runs the benchmark's stage I call (``bench_torch``'s cell
 ``--clock N`` also times N unprofiled calls in this process with the
 spans read on the host clock (``record_function`` replaced by a
 ``perf_counter`` stack while they run: no profiler, so no per-op
-overhead); the parse pool's own floor: the seconds
-``pipeline.parsed_streams`` takes to parse every genome with nothing
-consuming its output but the loop; and the stream's own cost: the
-genomes parsed first, then sketched group by group
+overhead), with the mean of each logged stage; the parse pool's own
+floor: the seconds ``pipeline.parsed_streams`` takes to parse every
+genome with nothing consuming its output but the loop; and the stream's
+own cost: the genomes parsed first, then sketched group by group
 (``ops.sketch.sketch_codes_multi`` over stage I's 64 MB groups) with no
 parse thread running, its spans on the host clock.
 
@@ -139,20 +139,24 @@ class HostClock:
 
 def clocked_calls(argv: list[str], n: int) -> dict:
     """n in-process calls of ``argv`` with the spans on the host clock:
-    the mean self seconds of each span a call, and each call's wall."""
+    the mean self seconds of each span a call, the mean of each stage
+    the calls logged, and each call's wall."""
     import torch
 
     clock = HostClock()
-    walls = []
+    walls, stages = [], {}
     real = torch.profiler.record_function
     torch.profiler.record_function = clock
     try:
         for _ in range(n):
-            walls.append(run_cli(*argv)[0])
+            wall, logged = run_cli(*argv)
+            walls.append(wall)
+            for k, v in logged.items():
+                stages[k] = stages.get(k, 0.0) + v / n
             shutil.rmtree(argv[argv.index("-o") + 1])
     finally:
         torch.profiler.record_function = real
-    return {"walls_s": walls,
+    return {"walls_s": walls, "stages_s": stages,
             "self_s": {k: v / n for k, v in sorted(clock.self_s.items(),
                                                    key=lambda kv: -kv[1])}}
 
