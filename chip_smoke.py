@@ -56,7 +56,13 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               shufspace.detect of the .shuf on the card (the whole-table
               Feistel check the CLI runs before stage I), timed, its
               verdict equal to the numpy check's on the run's .shuf and on
-              a copy with two entries swapped past the spot-check
+              a copy with two entries swapped past the spot-check; the
+              references again as gzip, each one member but the first
+              bgzip-style (a member for each 64 KB, then an empty one):
+              dist -r of them gives combco files byte-equal to the plain
+              FASTA run's; logs the inflater the host loaded (libdeflate,
+              the system zlib, or the gzip module) and the parse pool's
+              seconds over those files
   5. search-heavy main path: the 10,000-ref synthetic DB of phase 3 as a
               stage I directory, indexed and searched by 1,000 queries
               through the CLI; distance.out byte-equal to --cpu-count and
@@ -1036,7 +1042,59 @@ def phase_sketch_heavy(work: str) -> None:
         f"queries: {N_QRY_GENOMES / t_qry:.3f} genomes/s, "
         f"{N_QRY_GENOMES * mb / t_qry:.2f} Mbases/s ({t_qry:.3f} s); search "
         f"{N_QRY_GENOMES * N_REF_GENOMES / t_search:.1f} pairs/s ({t_search:.3f} s)")
+    check_gzip_refs(work, ref_dir, shuf + ".shuf")
     shutil.rmtree(qry_dir)  # the references feed phase 7's reads
+
+
+def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:
+    """Phase 4's references as gzip files, sketched through the CLI: the
+    combco files byte-equal to the plain FASTA run's (``work/ref``). The
+    first is bgzip-style, a member for each 64 KB and an empty member
+    at the end; the others are one member each. Logs the inflater and
+    the parse pool's seconds over these files (``parsed_streams`` alone,
+    its default workers)."""
+    import gzip
+
+    from public_kssd_tpu_torch import infiles, pipeline, seqio
+
+    gz_dir, out = f"{work}/refs_gz", f"{work}/ref_gz"
+    os.makedirs(gz_dir)
+    names = sorted(os.listdir(ref_dir))
+
+    def put(i: int) -> None:
+        with open(f"{ref_dir}/{names[i]}", "rb") as f:
+            body = f.read()
+        if i == 0:
+            data = b"".join(gzip.compress(body[j : j + 65280], 6)
+                            for j in range(0, len(body), 65280)) + gzip.compress(b"")
+        else:
+            data = gzip.compress(body, 1)
+        with open(f"{gz_dir}/{names[i]}.gz", "wb") as f:
+            f.write(data)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(put, range(len(names))))
+    t_dist = run_cli("dist", "-r", gz_dir, "-L", shuf, "-o", out, "--no-dense-index")
+    combco = sorted(n for n in os.listdir(f"{work}/ref") if n.startswith("combco"))
+    if not combco or combco != sorted(n for n in os.listdir(out) if n.startswith("combco")):
+        raise AssertionError(f"combco files {combco} vs {os.listdir(out)}")
+    size = sum(same_bytes(f"{work}/ref/{n}", f"{out}/{n}") for n in combco)
+    files = infiles.organize_infiles([gz_dir])
+    pool = []
+    for _ in range(3):
+        t = time.perf_counter()
+        for _item in pipeline.parsed_streams(files, pipeline.SketchOptions()):
+            pass
+        pool.append(time.perf_counter() - t)
+    inflater = ("libdeflate" if seqio._LIBDEFLATE is not None
+                else "zlib" if seqio._LIBZ is not None else "gzip module")
+    log(f"[sketch-heavy] gzip references ({names[0]} in "
+        f"{-(-os.path.getsize(f'{ref_dir}/{names[0]}') // 65280) + 1} members): "
+        f"{len(combco)} combco files, {size} B, byte-equal to the FASTA run's; "
+        f"dist -r {t_dist:.3f} s; inflater {inflater}; parse pool over "
+        f"{len(files)} files {', '.join(f'{t:.3f}' for t in pool)} s")
+    shutil.rmtree(gz_dir)
+    shutil.rmtree(out)
 
 
 def check_detect(path: str) -> None:

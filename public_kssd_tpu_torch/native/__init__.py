@@ -138,23 +138,61 @@ def _load():
 
 
 def fasta_to_codes(raw: bytes) -> np.ndarray | None:
+    """kssd_fasta_to_codes of ``raw`` into one new array; the symbols
+    are a view of it."""
     lib = get_lib()
     if lib is None:
         return None
     data = np.frombuffer(raw, dtype=np.uint8)
     out = np.empty(max(data.size, 1), dtype=np.uint8)
-    n = lib.kssd_fasta_to_codes(data, data.size, out)
-    return out[:n].copy()
+    return out[: lib.kssd_fasta_to_codes(data, data.size, out)]
 
 
 def fastq_to_codes(raw: bytes, min_qual: int = 0) -> np.ndarray | None:
+    """kssd_fastq_to_codes of ``raw`` into one new array; the symbols
+    are a view of it."""
     lib = get_lib()
     if lib is None:
         return None
     data = np.frombuffer(raw, dtype=np.uint8)
     out = np.empty(max(data.size, 1), dtype=np.uint8)
-    n = lib.kssd_fastq_to_codes(data, data.size, min_qual, out)
-    return out[:n].copy()
+    return out[: lib.kssd_fastq_to_codes(data, data.size, min_qual, out)]
+
+
+# In place: each scanner writes at most one symbol for each byte it has
+# read, so its write position never passes its read position, and the
+# byte at the write position has been read before it is written. The
+# fastq scanner finds a record's four lines before it writes any symbol
+# of it: its writes stay below the record's sequence line, its quality
+# reads above it. kssd_host.c's pointers are not restrict, so the
+# aliasing is legal C.
+
+
+def _writable(buf: np.ndarray) -> np.ndarray:
+    if not (buf.dtype == np.uint8 and buf.ndim == 1
+            and buf.flags.c_contiguous and buf.flags.writeable):
+        raise ValueError("a writable contiguous 1-d uint8 array expected")
+    return buf
+
+
+def fasta_codes_in_place(buf: np.ndarray) -> np.ndarray | None:
+    """``fasta_to_codes`` of ``buf``'s bytes, written over them: the
+    symbols are ``buf[:n]``. None if the lib is absent."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _writable(buf)
+    return buf[: lib.kssd_fasta_to_codes(buf, buf.size, buf)]
+
+
+def fastq_codes_in_place(buf: np.ndarray, min_qual: int = 0) -> np.ndarray | None:
+    """``fastq_to_codes`` of ``buf``'s bytes, written over them: the
+    symbols are ``buf[:n]``. None if the lib is absent."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _writable(buf)
+    return buf[: lib.kssd_fastq_to_codes(buf, buf.size, min_qual, buf)]
 
 
 def _slot_map(n_fill: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -62,7 +62,8 @@ STREAM_BYTES = 512 << 20  # stream files whose decompressed size may exceed this
 def parse_one(path: str, opts: SketchOptions):
     """Host parse of one input file into a symbol stream.
 
-    Small files return one array; files estimated to decompress past
+    Small files return one array (seqio.read_codes: the file inflated
+    and scanned in one buffer); files estimated to decompress past
     STREAM_BYTES return a lazy piece iterator (seqio.stream_*_codes) so
     host RSS stays bounded — the streaming counterpart of the
     reference's 64 KB rolling buffer (iseq2comem.c:207-212).
@@ -76,12 +77,9 @@ def parse_one(path: str, opts: SketchOptions):
         if is_fastq:
             return seqio.stream_fastq_codes(path, min_qual, opts.pipecmd)
         return seqio.stream_fasta_codes(path, opts.pipecmd)
-    raw = seqio.read_bytes(path, opts.pipecmd)
-    if is_fastq:
-        # abundance mode: mt_shortreads2koc has no quality filter
-        # (iseq2comem.c:552-615)
-        return seqio.fastq_to_codes(raw, min_qual=min_qual)
-    return seqio.fasta_to_codes(raw)
+    # abundance mode: mt_shortreads2koc has no quality filter
+    # (iseq2comem.c:552-615)
+    return seqio.read_codes(path, is_fastq, min_qual, opts.pipecmd)
 
 
 def parsed_streams(paths, opts: SketchOptions, workers: int | None = None):

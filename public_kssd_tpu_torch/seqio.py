@@ -20,6 +20,17 @@ exactly the set of k-mers the reference emits.
 
 Parsing is vectorised numpy (no per-byte Python); gz/bz2 handled like the
 reference's ``zcat -fc`` pipe (iseq2comem.c:187-200).
+
+Stage I parses small files on ``pipeline.parsed_streams``' threads
+through ``read_codes``: each file is inflated (libdeflate, else the
+system zlib, both called through ctypes with the GIL dropped) or read
+into one array that the C scanner overwrites in place. Measured with
+``tools/stage1_spans.py --parse-split`` on an NVIDIA H100 80GB HBM3
+host (8 CPUs, no libdeflate; 128 gzip genomes of 5.3 Mb): one thread
+reads a genome in about 1 ms, inflates it in 20-22 ms and scans it in
+4-5 ms; the pool takes 3.8-4.2 s on one worker and 0.64-0.70 s on
+eight, against 4.7-4.9 s and 0.98-1.11 s through the gzip module's
+bytes, which it joins and copies while it holds the GIL.
 """
 
 from __future__ import annotations
@@ -50,7 +61,9 @@ def _load_libdeflate():
     inflate runs ~2-3x faster than zlib, and gz inflate is the measured
     stage I host bottleneck (bench.py::bench_host_io — zlib ~170
     Mbases/s/core vs the native fasta scan's ~700). Returns None when
-    the library is missing; callers fall back to the gzip module."""
+    the library is missing; callers fall back to the gzip module. The
+    buffers are passed as addresses, so a member is read and written in
+    place inside larger buffers."""
     import ctypes
     import ctypes.util
 
@@ -67,8 +80,8 @@ def _load_libdeflate():
         lib.libdeflate_gzip_decompress_ex.restype = ctypes.c_int
         lib.libdeflate_gzip_decompress_ex.argtypes = [
             ctypes.c_void_p,
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_void_p, ctypes.c_size_t,
+            ctypes.c_void_p, ctypes.c_size_t,
             ctypes.POINTER(ctypes.c_size_t),
             ctypes.POINTER(ctypes.c_size_t),
         ]
@@ -80,50 +93,177 @@ def _load_libdeflate():
 _LIBDEFLATE = _load_libdeflate()
 
 
-def gzip_decompress(data: bytes) -> bytes:
-    """Whole-buffer gz inflate via libdeflate when available (multi-
-    member aware), zlib's gzip module otherwise. Byte-identical output
-    either way — only the inflate speed differs (the GIL is released
-    inside libdeflate, so parse-ahead threads scale with cores exactly
-    as with zlib)."""
+def _load_libz():
+    """ctypes binding to the system zlib, the library behind Python's
+    ``zlib`` module, for hosts without libdeflate: its inflate, called
+    directly, writes into a caller's array and drops the GIL for the
+    whole member (the module's returns bytes, joined and copied while
+    the GIL is held). Returns None when the library is missing."""
+    import ctypes
+    import ctypes.util
+
+    class ZStream(ctypes.Structure):  # zlib.h's z_stream
+        _fields_ = [
+            ("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint),
+            ("total_in", ctypes.c_ulong),
+            ("next_out", ctypes.c_void_p), ("avail_out", ctypes.c_uint),
+            ("total_out", ctypes.c_ulong),
+            ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p),
+            ("zalloc", ctypes.c_void_p), ("zfree", ctypes.c_void_p),
+            ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+            ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong),
+        ]
+
+    name = ctypes.util.find_library("z") or "libz.so.1"
+    try:
+        lib = ctypes.CDLL(name)
+        zsp = ctypes.POINTER(ZStream)
+        lib.inflateInit2_.restype = ctypes.c_int
+        lib.inflateInit2_.argtypes = [zsp, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        lib.inflate.restype = ctypes.c_int
+        lib.inflate.argtypes = [zsp, ctypes.c_int]
+        lib.inflateReset.restype = ctypes.c_int
+        lib.inflateReset.argtypes = [zsp]
+        lib.inflateEnd.restype = ctypes.c_int
+        lib.inflateEnd.argtypes = [zsp]
+    except (OSError, AttributeError):
+        return None
+    lib.ZStream = ZStream  # the struct its functions take
+    return lib
+
+
+_LIBZ = _load_libz()
+
+# deflate's largest ratio: 258 output bytes from 2 bits of input
+_DEFLATE_MAX_RATIO = 1032
+_GZIP_MAGIC = b"\x1f\x8b"
+
+
+def inflate(data: bytes) -> np.ndarray | None:
+    """The gzip ``data`` inflated into one writable ``uint8`` array,
+    member after member: by libdeflate where it is loaded, else by the
+    system zlib. None where ``gzip_decompress`` falls back to the gzip
+    module (input under 18 bytes, no library, a decode error): the
+    caller then calls ``gzip.decompress(data)``, which raises what it
+    raises.
+
+    Each member is written straight into the array at the end of the
+    previous one and read from the input at an address offset, so a
+    file of m members costs O(n), not O(m n), and nothing is copied or
+    zero-filled while the GIL is held (both libraries drop it). The
+    array starts at the trailer's ISIZE when one member of this length
+    could inflate to it (a single-member file then fits exactly), else
+    at four times the input, and doubles when it is full. Where the
+    members end, each route stops as the JAX package's does on that
+    host: libdeflate's where the rest cannot be a gzip member (as
+    ``zcat`` stops at trailing padding), zlib's as ``gzip.decompress``
+    does (NUL padding skipped, anything else an error)."""
+    if len(data) < 18 or (_LIBDEFLATE is None and _LIBZ is None):
+        return None
+    src = np.frombuffer(data, dtype=np.uint8)
+    isize = int.from_bytes(data[-4:], "little")
+    if len(data) // 2 <= isize <= _DEFLATE_MAX_RATIO * len(data):
+        out = np.empty(max(isize, 1), dtype=np.uint8)
+    else:
+        out = np.empty(max(4 * len(data), 1 << 16), dtype=np.uint8)
+    if _LIBDEFLATE is not None:
+        got = _inflate_libdeflate(_LIBDEFLATE, data, src, out)
+    else:
+        got = _inflate_libz(_LIBZ, data, src, out)
+    if got is None:
+        return None
+    out, o = got
+    if out.size - o > o // 4:  # grown past the output: keep <= 1.25x
+        return out[:o].copy()
+    return out[:o]
+
+
+def _grown(out: np.ndarray, o: int) -> np.ndarray:
+    """``out`` at twice its size, its first ``o`` bytes kept."""
+    grown = np.empty(2 * out.size, dtype=np.uint8)
+    grown[:o] = out[:o]
+    return grown
+
+
+def _inflate_libdeflate(lib, data: bytes, src: np.ndarray, out: np.ndarray):
+    """(array, bytes written) or None on a decode error."""
     import ctypes
 
-    lib = _LIBDEFLATE
-    if lib is None or len(data) < 18:
-        return gzip.decompress(data)
-    # ISIZE (last member's uncompressed size mod 2^32) seeds the output
-    # buffer; grow-and-retry covers multi-member files and >4 GB
-    # members, any decode error falls back to zlib
-    guess = max(int.from_bytes(data[-4:], "little"), 4 * len(data), 1 << 16)
     d = lib.libdeflate_alloc_decompressor()
     if not d:
-        return gzip.decompress(data)
+        return None
     try:
-        parts = []
-        in_off = 0
-        out_buf = ctypes.create_string_buffer(guess)
-        while in_off < len(data):
-            in_used = ctypes.c_size_t(0)
-            out_used = ctypes.c_size_t(0)
+        in_used = ctypes.c_size_t(0)
+        out_used = ctypes.c_size_t(0)
+        i = o = 0
+        while i < src.size:
             rc = lib.libdeflate_gzip_decompress_ex(
-                d, data[in_off:], len(data) - in_off,
-                out_buf, len(out_buf),
+                d, src.ctypes.data + i, src.size - i,
+                out.ctypes.data + o, out.size - o,
                 ctypes.byref(in_used), ctypes.byref(out_used),
             )
-            if rc == 3:  # LIBDEFLATE_INSUFFICIENT_SPACE
-                out_buf = ctypes.create_string_buffer(2 * len(out_buf))
+            if rc == 3:  # LIBDEFLATE_INSUFFICIENT_SPACE: grow, retry the member
+                out = _grown(out, o)
                 continue
             if rc != 0 or in_used.value == 0:
-                return gzip.decompress(data)
-            parts.append(out_buf.raw[: out_used.value])
-            in_off += in_used.value
+                return None
+            i += in_used.value
+            o += out_used.value
             # trailing garbage/padding after the last member: stop like
             # zcat does when what remains cannot be a gzip header
-            if len(data) - in_off < 18 or data[in_off : in_off + 2] != b"\x1f\x8b":
+            if src.size - i < 18 or data[i : i + 2] != _GZIP_MAGIC:
                 break
-        return b"".join(parts)
+        return out, o
     finally:
         lib.libdeflate_free_decompressor(d)
+
+
+def _inflate_libz(lib, data: bytes, src: np.ndarray, out: np.ndarray):
+    """(array, bytes written) or None where ``gzip.decompress`` would
+    not return: a decode or check error, a truncated member, bytes after
+    a member that are neither NULs nor another member."""
+    import ctypes
+    import zlib
+
+    z = lib.ZStream()
+    zp = ctypes.byref(z)
+    # windowBits 31: one gzip member, its CRC-32 and ISIZE checked
+    if lib.inflateInit2_(zp, 31, zlib.ZLIB_RUNTIME_VERSION.encode(),
+                         ctypes.sizeof(z)) != 0:
+        return None
+    try:
+        i = o = 0
+        while True:
+            z.next_in = src.ctypes.data + i
+            z.avail_in = min(src.size - i, 1 << 30)
+            z.next_out = out.ctypes.data + o
+            z.avail_out = min(out.size - o, 1 << 30)
+            rc = lib.inflate(zp, 0)  # Z_NO_FLUSH
+            di = z.next_in - (src.ctypes.data + i)
+            do = z.next_out - (out.ctypes.data + o)
+            i, o = i + di, o + do
+            if rc == 1:  # Z_STREAM_END: the member and its trailer read
+                while i < src.size and src[i] == 0:  # gzip.decompress's lstrip
+                    nz = np.flatnonzero(src[i : i + (1 << 16)])
+                    i += int(nz[0]) if nz.size else min(1 << 16, src.size - i)
+                if i == src.size:
+                    return out, o
+                if data[i : i + 2] != _GZIP_MAGIC or lib.inflateReset(zp) != 0:
+                    return None
+            elif rc not in (0, -5) or not (di or do or o == out.size):
+                return None  # an error, or the input ended inside a member
+            elif o == out.size:  # Z_OK or Z_BUF_ERROR with the array full
+                out = _grown(out, o)
+    finally:
+        lib.inflateEnd(zp)
+
+
+def gzip_decompress(data: bytes) -> bytes:
+    """Whole-buffer gz inflate (multi-member aware, ``inflate``), the
+    gzip module's where ``inflate`` cannot. Byte-identical output either
+    way — only the inflate speed differs."""
+    out = inflate(data)
+    return gzip.decompress(data) if out is None else out.tobytes()
 
 
 def read_bytes(path: str, pipecmd: str | None = None) -> bytes:
@@ -140,6 +280,43 @@ def read_bytes(path: str, pipecmd: str | None = None) -> bytes:
             return f.read()
     with open(path, "rb") as f:
         return f.read()
+
+
+def read_codes(
+    path: str, fastq: bool = False, min_qual: int = 0, pipecmd: str | None = None
+) -> np.ndarray:
+    """The symbols of one whole file: ``fastq_to_codes`` (``fastq``) or
+    ``fasta_to_codes`` of ``read_bytes(path, pipecmd)``, with no copy of
+    the file's bytes. A plain file is read, and a gzip file inflated by
+    libdeflate, into one writable array that the C scanner overwrites in
+    place, and the symbols are a view of it. What arrives as bytes
+    (zlib's inflate, bz2, a pipe) is scanned into one new array."""
+    from public_kssd_tpu_torch import native
+
+    buf = None
+    if pipecmd:
+        raw = read_bytes(path, pipecmd)
+    elif path.endswith(".gz"):
+        with open(path, "rb") as f:
+            raw = f.read()
+        buf = inflate(raw)
+        if buf is None:
+            raw = gzip.decompress(raw)
+    elif path.endswith(".bz2"):
+        raw = read_bytes(path)
+    else:
+        buf = np.fromfile(path, dtype=np.uint8)
+    if buf is not None:
+        if fastq:
+            out = native.fastq_codes_in_place(buf, min_qual)
+        else:
+            out = native.fasta_codes_in_place(buf)
+        if out is not None:
+            return out
+        raw = buf.tobytes()  # no C scanner on this host: numpy's
+    if fastq:
+        return fastq_to_codes(raw, min_qual)
+    return fasta_to_codes(raw)
 
 
 class _PipeStream:
@@ -279,9 +456,9 @@ def fasta_to_codes_py(raw: bytes) -> np.ndarray:
     in_header = np.zeros(buf.size + 1, dtype=np.int32)
     if gt.size:
         nl = np.flatnonzero(buf == ord("\n"))
-        # closing newline index for each '>' (or EOF)
-        close = np.searchsorted(nl, gt)
-        ends = np.where(close < nl.size, nl[np.minimum(close, nl.size - 1)], buf.size - 1)
+        # closing newline index for each '>' (or EOF, also when the
+        # input has no newline at all)
+        ends = np.append(nl, buf.size - 1)[np.searchsorted(nl, gt)]
         np.add.at(in_header, gt, 1)
         np.add.at(in_header, ends + 1, -1)
         in_header = np.cumsum(in_header[:-1]) > 0

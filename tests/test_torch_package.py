@@ -19,7 +19,7 @@ JAX_PKG = os.path.join(REPO, "public_kssd_tpu")
 PORT_PKG = os.path.join(REPO, "public_kssd_tpu_torch")
 
 # host modules copied line for line; only the package name differs
-VERBATIM = ["config", "formats", "infiles", "seqio", "hashdedup",
+VERBATIM = ["config", "formats", "infiles", "hashdedup",
             "combine", "setops", "reverse", "postproc"]
 
 # copies that differ on purpose: the top-level definitions named here
@@ -35,12 +35,33 @@ DIFFERING = {
     # of the filled slots (_slot_map), built into the same library
     # (_DEDUP_SRC, _SOURCES); get_lib builds and loads (_load) under a
     # lock (_LOCK), so a thread that calls it during another's build
-    # waits for that build and gets the library
+    # waits for that build and gets the library; the scanners return a
+    # view of their output array, not a copy, and scan a writable array
+    # in place (fasta_codes_in_place, fastq_codes_in_place, _writable)
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS", "_PRINT_SRC",
                         "Names", "dist_rows_buf", "dist_row",
                         "_DEDUP_SRC", "_SOURCES", "_slot_map",
-                        "dedup_slot_order", "dedup_counts", "_load", "_LOCK"},
+                        "dedup_slot_order", "dedup_counts", "_load", "_LOCK",
+                        "fasta_to_codes", "fastq_to_codes", "_writable",
+                        "fasta_codes_in_place", "fastq_codes_in_place"},
+    # a small file's bytes land in one array and are scanned there
+    # (read_codes): libdeflate, or without it the system zlib through
+    # ctypes (_load_libz, _LIBZ), inflates gzip members straight into
+    # it, reading the input at address offsets (inflate, _grown,
+    # _inflate_libdeflate, _inflate_libz, _DEFLATE_MAX_RATIO,
+    # _GZIP_MAGIC; _load_libdeflate binds the buffers as addresses), so
+    # a multi-member file costs O(n) and nothing is copied under the
+    # GIL; gzip_decompress is a wrapper over inflate. The bytes, each
+    # route's stop rules (libdeflate's, and gzip.decompress's for zlib)
+    # and the gzip module's fallback are the original's. fasta_to_codes_py
+    # (the scanner of hosts without a compiler) also closes a header at
+    # the end of an input that holds no newline, where the original
+    # raises IndexError
+    "seqio": {"_load_libdeflate", "_load_libz", "_LIBZ", "_DEFLATE_MAX_RATIO",
+              "_GZIP_MAGIC", "inflate", "_grown", "_inflate_libdeflate",
+              "_inflate_libz", "gzip_decompress", "read_codes",
+              "fasta_to_codes_py"},
     # write_distance_out formats blocks of lines on -p threads through
     # native/kssd_print.c and writes them in query order (print_threads,
     # print_blocks, _write_native and their constants); its Python

@@ -22,9 +22,17 @@ own cost: the genomes parsed first, then sketched group by group
 (``ops.sketch.sketch_codes_multi`` over stage I's 64 MB groups) with no
 parse thread running, its spans on the host clock.
 
+``--parse-split`` also splits the parse of one genome on one thread
+into reading the gzip file, inflating it and scanning it (the median
+milliseconds over the genomes, each the best of three), names the
+inflater this host loaded (libdeflate, the system zlib, or the gzip
+module where neither loads), and times the parse pool alone at 1, 2,
+4, 6, 7 and 8 workers (seconds for all the genomes, three passes
+each).
+
 Run from the checkout's root, on a card::
 
-    python3 tools/stage1_spans.py [--calls 2] [--clock 5] [--seed N] [--out FILE]
+    python3 tools/stage1_spans.py [--calls 2] [--clock 5] [--parse-split] [--seed N] [--out FILE]
 
 One JSON line per profiled call (and one for the clocked calls) on
 stdout, the last line a summary with the device name; ``--out`` also
@@ -176,6 +184,67 @@ def parse_floor(refs: str, n: int) -> list[float]:
     return out
 
 
+POOL_WORKERS = (1, 2, 4, 6, 7, 8)
+
+
+def inflater(seqio) -> str:
+    """The library that inflates gzip into the parse's array on this
+    host; "gzip module" where neither loads (and on a tree from before
+    the system zlib was bound)."""
+    if seqio._LIBDEFLATE is not None:
+        return "libdeflate"
+    return "zlib" if getattr(seqio, "_LIBZ", None) is not None else "gzip module"
+
+
+def parse_split(refs: str, passes: int = 3) -> dict:
+    """One thread's read, inflate and scan milliseconds per genome, and
+    the pool's seconds at each of POOL_WORKERS. A tree from before
+    ``seqio.inflate`` (the bytes route) is split as it parses:
+    ``gzip_decompress``, then ``fasta_to_codes``."""
+    import statistics
+
+    from public_kssd_tpu_torch import infiles, native, pipeline, seqio
+
+    files = infiles.organize_infiles([refs])
+    inflate = getattr(seqio, "inflate", None)
+    split = {"read_ms": [], "inflate_ms": [], "scan_ms": []}
+    for path in files:
+        best = [float("inf")] * 3
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            with open(path, "rb") as f:
+                data = f.read()
+            t1 = time.perf_counter()
+            buf = None if inflate is None else inflate(data)
+            if buf is None:
+                raw = seqio.gzip_decompress(data)
+            t2 = time.perf_counter()
+            if buf is None:
+                seqio.fasta_to_codes(raw)
+            else:
+                native.fasta_codes_in_place(buf)
+            t3 = time.perf_counter()
+            best = [min(b, t) for b, t in zip(best, (t1 - t0, t2 - t1, t3 - t2))]
+        for key, b in zip(split, best):
+            split[key].append(b * 1e3)
+    opts = pipeline.SketchOptions()
+    pools = {}
+    for w in POOL_WORKERS:
+        pools[w] = []
+        for _ in range(passes):
+            t = time.perf_counter()
+            for _item in pipeline.parsed_streams(files, opts, workers=w):
+                pass
+            pools[w].append(time.perf_counter() - t)
+    return {
+        "inflater": inflater(seqio),
+        "route": "bytes" if inflate is None else "in place",
+        "genomes": len(files),
+        **{k: statistics.median(v) for k, v in split.items()},
+        "pool_s": pools,
+    }
+
+
 def stream_alone(refs: str, shuf: str, device, n: int) -> dict:
     """The sketch stream without the parse pool beside it: every genome
     parsed first, then n passes of ``sketch_codes_multi`` over stage I's
@@ -236,6 +305,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=2)
     ap.add_argument("--clock", type=int, default=0)
+    ap.add_argument("--parse-split", action="store_true")
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--genomes", type=int, default=128)
     ap.add_argument("--genome-bp", type=int, default=data.GENOME_BP)
@@ -274,6 +344,9 @@ def main(argv: list[str] | None = None) -> int:
         res["parse_pool_s"] = parse_floor(refs, args.clock)
         res["stream_alone"] = stream_alone(refs, shuf + ".shuf", device, args.clock)
         lines.append({"cell": STAGE1, "clocked_calls": args.clock, **res})
+        print(json.dumps(lines[-1]), flush=True)
+    if args.parse_split:
+        lines.append({"cell": STAGE1, "parse_split": parse_split(refs)})
         print(json.dumps(lines[-1]), flush=True)
     lines.append({"device": kind, "gpu": smi, "torch": torch.__version__,
                   "seed": args.seed, "genomes": args.genomes})
