@@ -1050,9 +1050,13 @@ def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:
     """Phase 4's references as gzip files, sketched through the CLI: the
     combco files byte-equal to the plain FASTA run's (``work/ref``). The
     first is bgzip-style, a member for each 64 KB and an empty member
-    at the end; the others are one member each. Logs the inflater and
-    the parse pool's seconds over these files (``parsed_streams`` alone,
-    its default workers)."""
+    at the end; the others are one member each. Every file must inflate
+    on the port's own inflater (``seqio.inflate_route()`` "kssd": the
+    helper built here), not through the gzip module behind it, to its
+    FASTA's bytes and to the library route's (``seqio._KSSD = False``:
+    libdeflate, else the system zlib). Logs the routes, one
+    thread's inflate of the files on each, and the parse pool's seconds
+    over them (``parsed_streams`` alone, its default workers)."""
     import gzip
 
     from public_kssd_tpu_torch import infiles, pipeline, seqio
@@ -1074,6 +1078,31 @@ def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:
 
     with ThreadPoolExecutor(8) as ex:
         list(ex.map(put, range(len(names))))
+    route = seqio.inflate_route()
+    if route != "kssd":
+        raise AssertionError(f"gzip is inflated on the {route} route, not the port's")
+    took = {route: 0.0}
+    for name in names:
+        with open(f"{gz_dir}/{name}.gz", "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        own = seqio.inflate(data)
+        took[route] += time.perf_counter() - t
+        if own is None:
+            raise AssertionError(f"the port's inflater refused {name}.gz")
+        with open(f"{ref_dir}/{name}", "rb") as f:
+            if own.tobytes() != f.read():
+                raise AssertionError(f"{name}.gz inflated to other bytes than its FASTA")
+        seqio._KSSD = False
+        try:
+            lib_route = seqio.inflate_route()
+            t = time.perf_counter()
+            other = seqio.inflate(data)
+            took[lib_route] = took.get(lib_route, 0.0) + time.perf_counter() - t
+        finally:
+            seqio._KSSD = True
+        if other is None or not np.array_equal(own, other):
+            raise AssertionError(f"{name}.gz: the {lib_route} route refused it or differs")
     t_dist = run_cli("dist", "-r", gz_dir, "-L", shuf, "-o", out, "--no-dense-index")
     combco = sorted(n for n in os.listdir(f"{work}/ref") if n.startswith("combco"))
     if not combco or combco != sorted(n for n in os.listdir(out) if n.startswith("combco")):
@@ -1086,13 +1115,15 @@ def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:
         for _item in pipeline.parsed_streams(files, pipeline.SketchOptions()):
             pass
         pool.append(time.perf_counter() - t)
-    inflater = ("libdeflate" if seqio._LIBDEFLATE is not None
-                else "zlib" if seqio._LIBZ is not None else "gzip module")
     log(f"[sketch-heavy] gzip references ({names[0]} in "
         f"{-(-os.path.getsize(f'{ref_dir}/{names[0]}') // 65280) + 1} members): "
         f"{len(combco)} combco files, {size} B, byte-equal to the FASTA run's; "
-        f"dist -r {t_dist:.3f} s; inflater {inflater}; parse pool over "
-        f"{len(files)} files {', '.join(f'{t:.3f}' for t in pool)} s")
+        f"dist -r {t_dist:.3f} s; inflater {route}, every file inflated to its "
+        f"FASTA's bytes and to the {lib_route} route's; one thread's inflate of the "
+        f"{len(names)} files: "
+        + ", ".join(f"{k} {v * 1e3 / len(names):.3f} ms" for k, v in took.items())
+        + f" a file; parse pool over {len(files)} files "
+        f"{', '.join(f'{t:.3f}' for t in pool)} s")
     shutil.rmtree(gz_dir)
     shutil.rmtree(out)
 

@@ -1,11 +1,12 @@
 """ctypes bindings for the native host helpers (kssd_host.c, kssd_print.c,
-kssd_dedup.c).
+kssd_dedup.c, kssd_inflate.c).
 
 The C sources are this package's own: ``native/kssd_host.c``, a
 byte-equal copy of the JAX package's (tests/test_torch_package.py holds
 the two equal), ``native/kssd_print.c``, the distance.out block
-formatter, and ``native/kssd_dedup.c``, the slot-order dedups that visit
-only the slots they fill. All three are compiled on demand with the
+formatter, ``native/kssd_dedup.c``, the slot-order dedups that visit
+only the slots they fill, and ``native/kssd_inflate.c``, the gzip
+inflater of stage I's parse. All four are compiled on demand with the
 system compiler into one library in ``build/public_kssd_tpu_torch/``
 under the checkout, under a name keyed by the sources' hash and flags,
 so a library built from other sources is never loaded. Plain ``-O3`` (no
@@ -31,7 +32,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "kssd_host.c")
 _PRINT_SRC = os.path.join(_HERE, "kssd_print.c")
 _DEDUP_SRC = os.path.join(_HERE, "kssd_dedup.c")
-_SOURCES = (_SRC, _PRINT_SRC, _DEDUP_SRC)
+_INFLATE_SRC = os.path.join(_HERE, "kssd_inflate.c")
+_SOURCES = (_SRC, _PRINT_SRC, _DEDUP_SRC, _INFLATE_SRC)
 BUILD_DIR = os.path.join(_ROOT, "build", "public_kssd_tpu_torch")
 _CFLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -112,6 +114,13 @@ def _load():
     lib.kssd_dedup_u32_slot_order.argtypes = [
         u32p, ctypes.c_size_t, u32p, ctypes.c_uint32, u32p,
     ]
+    lib.kssd_gzip_inflate.restype = ctypes.c_int
+    lib.kssd_gzip_inflate.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t),
+    ]
+    lib.kssd_crc32.restype = ctypes.c_uint32
+    lib.kssd_crc32.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     lib.kssd_pack2.restype = None
     lib.kssd_pack2.argtypes = [u8p, ctypes.c_size_t, u32p, ctypes.c_size_t]
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -157,6 +166,36 @@ def fastq_to_codes(raw: bytes, min_qual: int = 0) -> np.ndarray | None:
     data = np.frombuffer(raw, dtype=np.uint8)
     out = np.empty(max(data.size, 1), dtype=np.uint8)
     return out[: lib.kssd_fastq_to_codes(data, data.size, min_qual, out)]
+
+
+# kssd_gzip_inflate's results
+INFLATE_OK, INFLATE_BAD_DATA, INFLATE_BAD_CHECK, INFLATE_NO_SPACE, INFLATE_TRUNCATED = range(5)
+
+
+def gzip_member(src: int, n_src: int, dst: int, n_dst: int) -> tuple[int, int, int] | None:
+    """kssd_gzip_inflate: the gzip member at address ``src`` (``n_src``
+    bytes readable, the member first) inflated into address ``dst``
+    (``n_dst`` bytes writable, nothing written past them), as (one of
+    the INFLATE_* codes, bytes read, bytes written); None when the
+    helper did not build. Drops the GIL while it runs."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_in, n_out = ctypes.c_size_t(), ctypes.c_size_t()
+    rc = lib.kssd_gzip_inflate(src, n_src, dst, n_dst, ctypes.byref(n_in),
+                               ctypes.byref(n_out))
+    return rc, n_in.value, n_out.value
+
+
+def crc32(data) -> int | None:
+    """kssd_inflate.c's CRC-32 of ``data`` (bytes or a contiguous
+    array), as ``zlib.crc32`` gives it; None when the helper did not
+    build."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, np.uint8)
+    return lib.kssd_crc32(buf.ctypes.data, buf.size)
 
 
 # In place: each scanner writes at most one symbol for each byte it has

@@ -22,15 +22,16 @@ Parsing is vectorised numpy (no per-byte Python); gz/bz2 handled like the
 reference's ``zcat -fc`` pipe (iseq2comem.c:187-200).
 
 Stage I parses small files on ``pipeline.parsed_streams``' threads
-through ``read_codes``: each file is inflated (libdeflate, else the
-system zlib, both called through ctypes with the GIL dropped) or read
+through ``read_codes``: each file is inflated (the port's own inflater,
+``native/kssd_inflate.c``; without the helper libdeflate, else the
+system zlib; all called through ctypes with the GIL dropped) or read
 into one array that the C scanner overwrites in place. Measured with
 ``tools/stage1_spans.py --parse-split`` on an NVIDIA H100 80GB HBM3
 host (8 CPUs, no libdeflate; 128 gzip genomes of 5.3 Mb): one thread
-reads a genome in about 1 ms, inflates it in 20-22 ms and scans it in
-4-5 ms; the pool takes 3.8-4.2 s on one worker and 0.64-0.70 s on
-eight, against 4.7-4.9 s and 0.98-1.11 s through the gzip module's
-bytes, which it joins and copies while it holds the GIL.
+reads a genome in about 1 ms, inflates it in 9-9.4 ms (the system
+zlib: 21 ms) and scans it in 5 ms; the pool takes 2.1-2.9 s on one
+worker and 0.33-0.43 s on eight, against 3.9-4.3 s and 0.59-0.70 s on
+zlib's route.
 """
 
 from __future__ import annotations
@@ -139,26 +140,48 @@ _DEFLATE_MAX_RATIO = 1032
 _GZIP_MAGIC = b"\x1f\x8b"
 
 
+# False sends ``inflate`` past the port's inflater to the library
+# routes, as ``_LIBDEFLATE = None`` sends it past libdeflate (tests, tools)
+_KSSD = True
+
+
+def inflate_route() -> str:
+    """The route ``inflate`` takes on this host: "kssd", the port's own
+    inflater (``native/kssd_inflate.c``, in the helper library) where
+    the helper builds; else "libdeflate" where it is loaded, else "zlib"
+    (the system library through ctypes), else "gzip module". The port's
+    inflater goes first because it is the fastest: on one thread, a
+    5.3 Mb genome at level 6 (``tools/stage1_spans.py --parse-split``),
+    0.96x libdeflate's time and 0.41x zlib's on an 8-CPU Xeon host with
+    both, 0.42-0.43x zlib's on an H100 host without libdeflate."""
+    from public_kssd_tpu_torch import native
+
+    if _KSSD and native.get_lib() is not None:
+        return "kssd"
+    if _LIBDEFLATE is not None:
+        return "libdeflate"
+    return "zlib" if _LIBZ is not None else "gzip module"
+
+
 def inflate(data: bytes) -> np.ndarray | None:
     """The gzip ``data`` inflated into one writable ``uint8`` array,
-    member after member: by libdeflate where it is loaded, else by the
-    system zlib. None where ``gzip_decompress`` falls back to the gzip
-    module (input under 18 bytes, no library, a decode error): the
-    caller then calls ``gzip.decompress(data)``, which raises what it
-    raises.
+    member after member, on ``inflate_route()``'s route. None where
+    ``gzip_decompress`` falls back to the gzip module (input under 18
+    bytes, no route but the module, a decode error): the caller then
+    calls ``gzip.decompress(data)``, which raises what it raises.
 
     Each member is written straight into the array at the end of the
     previous one and read from the input at an address offset, so a
     file of m members costs O(n), not O(m n), and nothing is copied or
-    zero-filled while the GIL is held (both libraries drop it). The
-    array starts at the trailer's ISIZE when one member of this length
-    could inflate to it (a single-member file then fits exactly), else
-    at four times the input, and doubles when it is full. Where the
-    members end, each route stops as the JAX package's does on that
-    host: libdeflate's where the rest cannot be a gzip member (as
-    ``zcat`` stops at trailing padding), zlib's as ``gzip.decompress``
-    does (NUL padding skipped, anything else an error)."""
-    if len(data) < 18 or (_LIBDEFLATE is None and _LIBZ is None):
+    zero-filled while the GIL is held (every route drops it). The array
+    starts at the trailer's ISIZE when one member of this length could
+    inflate to it (a single-member file then fits exactly), else at four
+    times the input, and doubles when it is full. Where the members end,
+    every route stops by ``_next_member``'s rule."""
+    if len(data) < 18:
+        return None
+    route = inflate_route()
+    if route == "gzip module":
         return None
     src = np.frombuffer(data, dtype=np.uint8)
     isize = int.from_bytes(data[-4:], "little")
@@ -166,7 +189,9 @@ def inflate(data: bytes) -> np.ndarray | None:
         out = np.empty(max(isize, 1), dtype=np.uint8)
     else:
         out = np.empty(max(4 * len(data), 1 << 16), dtype=np.uint8)
-    if _LIBDEFLATE is not None:
+    if route == "kssd":
+        got = _inflate_kssd(data, src, out)
+    elif route == "libdeflate":
         got = _inflate_libdeflate(_LIBDEFLATE, data, src, out)
     else:
         got = _inflate_libz(_LIBZ, data, src, out)
@@ -178,11 +203,53 @@ def inflate(data: bytes) -> np.ndarray | None:
     return out[:o]
 
 
+_END, _BAD = -1, -2
+
+
+def _next_member(data: bytes, src: np.ndarray, i: int) -> int:
+    """Where the member after one that ends at ``i`` starts; ``_END``
+    where the members end, ``_BAD`` where ``gzip.decompress`` raises.
+    The JAX package's rule on this host: where libdeflate is loaded,
+    libdeflate's (stop where what remains cannot be a gzip member, as
+    ``zcat`` stops at trailing padding), else ``gzip.decompress``'s (NUL
+    padding skipped, anything else but a member an error)."""
+    if _LIBDEFLATE is not None:
+        return _END if src.size - i < 18 or data[i : i + 2] != _GZIP_MAGIC else i
+    while i < src.size and src[i] == 0:  # gzip.decompress's lstrip
+        nz = np.flatnonzero(src[i : i + (1 << 16)])
+        i += int(nz[0]) if nz.size else min(1 << 16, src.size - i)
+    if i == src.size:
+        return _END
+    return i if data[i : i + 2] == _GZIP_MAGIC else _BAD
+
+
 def _grown(out: np.ndarray, o: int) -> np.ndarray:
     """``out`` at twice its size, its first ``o`` bytes kept."""
     grown = np.empty(2 * out.size, dtype=np.uint8)
     grown[:o] = out[:o]
     return grown
+
+
+def _inflate_kssd(data: bytes, src: np.ndarray, out: np.ndarray):
+    """(array, bytes written) or None on a decode, check or truncation
+    error, or where ``_next_member`` finds no member."""
+    from public_kssd_tpu_torch import native
+
+    base = src.ctypes.data
+    i = o = 0
+    while True:
+        rc, n_in, n_out = native.gzip_member(base + i, src.size - i,
+                                             out.ctypes.data + o, out.size - o)
+        if rc == native.INFLATE_NO_SPACE:  # grow, retry the member
+            out = _grown(out, o)
+            continue
+        if rc != native.INFLATE_OK:
+            return None
+        i, o = _next_member(data, src, i + n_in), o + n_out
+        if i == _END:
+            return out, o
+        if i == _BAD:
+            return None
 
 
 def _inflate_libdeflate(lib, data: bytes, src: np.ndarray, out: np.ndarray):
@@ -196,7 +263,7 @@ def _inflate_libdeflate(lib, data: bytes, src: np.ndarray, out: np.ndarray):
         in_used = ctypes.c_size_t(0)
         out_used = ctypes.c_size_t(0)
         i = o = 0
-        while i < src.size:
+        while True:
             rc = lib.libdeflate_gzip_decompress_ex(
                 d, src.ctypes.data + i, src.size - i,
                 out.ctypes.data + o, out.size - o,
@@ -207,13 +274,9 @@ def _inflate_libdeflate(lib, data: bytes, src: np.ndarray, out: np.ndarray):
                 continue
             if rc != 0 or in_used.value == 0:
                 return None
-            i += in_used.value
-            o += out_used.value
-            # trailing garbage/padding after the last member: stop like
-            # zcat does when what remains cannot be a gzip header
-            if src.size - i < 18 or data[i : i + 2] != _GZIP_MAGIC:
-                break
-        return out, o
+            i, o = _next_member(data, src, i + in_used.value), o + out_used.value
+            if i == _END:
+                return out, o
     finally:
         lib.libdeflate_free_decompressor(d)
 
@@ -221,7 +284,7 @@ def _inflate_libdeflate(lib, data: bytes, src: np.ndarray, out: np.ndarray):
 def _inflate_libz(lib, data: bytes, src: np.ndarray, out: np.ndarray):
     """(array, bytes written) or None where ``gzip.decompress`` would
     not return: a decode or check error, a truncated member, bytes after
-    a member that are neither NULs nor another member."""
+    a member that ``_next_member`` refuses."""
     import ctypes
     import zlib
 
@@ -243,12 +306,10 @@ def _inflate_libz(lib, data: bytes, src: np.ndarray, out: np.ndarray):
             do = z.next_out - (out.ctypes.data + o)
             i, o = i + di, o + do
             if rc == 1:  # Z_STREAM_END: the member and its trailer read
-                while i < src.size and src[i] == 0:  # gzip.decompress's lstrip
-                    nz = np.flatnonzero(src[i : i + (1 << 16)])
-                    i += int(nz[0]) if nz.size else min(1 << 16, src.size - i)
-                if i == src.size:
+                i = _next_member(data, src, i)
+                if i == _END:
                     return out, o
-                if data[i : i + 2] != _GZIP_MAGIC or lib.inflateReset(zp) != 0:
+                if i == _BAD or lib.inflateReset(zp) != 0:
                     return None
             elif rc not in (0, -5) or not (di or do or o == out.size):
                 return None  # an error, or the input ended inside a member
@@ -287,10 +348,11 @@ def read_codes(
 ) -> np.ndarray:
     """The symbols of one whole file: ``fastq_to_codes`` (``fastq``) or
     ``fasta_to_codes`` of ``read_bytes(path, pipecmd)``, with no copy of
-    the file's bytes. A plain file is read, and a gzip file inflated by
-    libdeflate, into one writable array that the C scanner overwrites in
-    place, and the symbols are a view of it. What arrives as bytes
-    (zlib's inflate, bz2, a pipe) is scanned into one new array."""
+    the file's bytes. A plain file is read, and a gzip file inflated
+    (``inflate``: the port's inflater, else libdeflate or the system
+    zlib), into one writable array that the C scanner overwrites in
+    place, and the symbols are a view of it. What arrives as bytes (the
+    gzip module's inflate, bz2, a pipe) is scanned into one new array."""
     from public_kssd_tpu_torch import native
 
     buf = None

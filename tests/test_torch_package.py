@@ -37,31 +37,39 @@ DIFFERING = {
     # lock (_LOCK), so a thread that calls it during another's build
     # waits for that build and gets the library; the scanners return a
     # view of their output array, not a copy, and scan a writable array
-    # in place (fasta_codes_in_place, fastq_codes_in_place, _writable)
+    # in place (fasta_codes_in_place, fastq_codes_in_place, _writable);
+    # adds the port's gzip inflater, native/kssd_inflate.c, built into
+    # the same library (_INFLATE_SRC), bound as gzip_member (one member
+    # between addresses, its INFLATE_* result codes) and crc32; the
+    # original has no inflater of its own
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS", "_PRINT_SRC",
                         "Names", "dist_rows_buf", "dist_row",
                         "_DEDUP_SRC", "_SOURCES", "_slot_map",
                         "dedup_slot_order", "dedup_counts", "_load", "_LOCK",
                         "fasta_to_codes", "fastq_to_codes", "_writable",
-                        "fasta_codes_in_place", "fastq_codes_in_place"},
+                        "fasta_codes_in_place", "fastq_codes_in_place",
+                        "_INFLATE_SRC", "gzip_member", "crc32"},
     # a small file's bytes land in one array and are scanned there
-    # (read_codes): libdeflate, or without it the system zlib through
-    # ctypes (_load_libz, _LIBZ), inflates gzip members straight into
-    # it, reading the input at address offsets (inflate, _grown,
-    # _inflate_libdeflate, _inflate_libz, _DEFLATE_MAX_RATIO,
-    # _GZIP_MAGIC; _load_libdeflate binds the buffers as addresses), so
-    # a multi-member file costs O(n) and nothing is copied under the
-    # GIL; gzip_decompress is a wrapper over inflate. The bytes, each
-    # route's stop rules (libdeflate's, and gzip.decompress's for zlib)
-    # and the gzip module's fallback are the original's. fasta_to_codes_py
-    # (the scanner of hosts without a compiler) also closes a header at
-    # the end of an input that holds no newline, where the original
-    # raises IndexError
+    # (read_codes): the port's own inflater (native/kssd_inflate.c through
+    # native.gzip_member, _inflate_kssd; _KSSD = False turns it off),
+    # else libdeflate, else the system zlib through ctypes
+    # (_load_libz, _LIBZ), inflates gzip members straight into it,
+    # reading the input at address offsets (inflate, inflate_route,
+    # _grown, _inflate_libdeflate, _inflate_libz, _DEFLATE_MAX_RATIO,
+    # _GZIP_MAGIC; _load_libdeflate binds the buffers as addresses), so a
+    # multi-member file costs O(n) and nothing is copied under the GIL;
+    # gzip_decompress is a wrapper over inflate. Every route stops where
+    # the members end by one rule (_next_member, _END, _BAD): the
+    # original's on the same host (libdeflate's where it is loaded,
+    # gzip.decompress's otherwise); the bytes and the gzip module's
+    # fallback are the original's. fasta_to_codes_py (the scanner of
+    # hosts without a compiler) also closes a header at the end of an
+    # input that holds no newline, where the original raises IndexError
     "seqio": {"_load_libdeflate", "_load_libz", "_LIBZ", "_DEFLATE_MAX_RATIO",
-              "_GZIP_MAGIC", "inflate", "_grown", "_inflate_libdeflate",
-              "_inflate_libz", "gzip_decompress", "read_codes",
-              "fasta_to_codes_py"},
+              "_GZIP_MAGIC", "inflate", "inflate_route", "_next_member",
+              "_grown", "_inflate_kssd", "_inflate_libdeflate", "_inflate_libz",
+              "gzip_decompress", "read_codes", "fasta_to_codes_py"},
     # write_distance_out formats blocks of lines on -p threads through
     # native/kssd_print.c and writes them in query order (print_threads,
     # print_blocks, _write_native and their constants); its Python
@@ -246,10 +254,14 @@ def test_native_helper_builds_from_its_own_source():
     assert native._SRC == os.path.join(PORT_PKG, "native", "kssd_host.c")
     assert native._PRINT_SRC == os.path.join(PORT_PKG, "native", "kssd_print.c")
     assert native._DEDUP_SRC == os.path.join(PORT_PKG, "native", "kssd_dedup.c")
+    assert native._INFLATE_SRC == os.path.join(PORT_PKG, "native", "kssd_inflate.c")
+    assert native._SOURCES == (native._SRC, native._PRINT_SRC, native._DEDUP_SRC,
+                               native._INFLATE_SRC)
     lib = native.get_lib()
     assert lib is not None
     assert lib.kssd_dist_rows_buf and lib.kssd_fasta_to_codes
     assert lib.kssd_dedup_slot_order_sparse and lib.kssd_dedup_counts_sparse
+    assert lib.kssd_gzip_inflate and lib.kssd_crc32
     assert os.path.dirname(native._so_path()) == os.path.join(
         REPO, "build", "public_kssd_tpu_torch"
     )

@@ -1,14 +1,19 @@
 """The port's small-file parse (seqio.read_codes under pipeline.parse_one:
 one buffer inflated and scanned in place) against the JAX package's
 (seqio.read_bytes, then fasta_to_codes / fastq_to_codes), on the CPU.
-Every symbol must be equal, on each inflate route: libdeflate; the
-system zlib into the array (``seqio._LIBDEFLATE = None`` in both
-packages: the JAX package then takes the gzip module's route); and the
-gzip module (``seqio._LIBZ = None`` too). Where the JAX package raises,
-the port raises the same error."""
+Every symbol must be equal, on each inflate route: the port's own
+inflater (native/kssd_inflate.c), with libdeflate loaded as on this
+host (its stop rule where the members end) and without it
+(``seqio._LIBDEFLATE = None`` in both packages: the JAX package then
+takes the gzip module's route); and, with the port's inflater off
+(``seqio._KSSD = False``), libdeflate; the system zlib into the
+array (``_LIBDEFLATE = None``); and the gzip module (``seqio._LIBZ =
+None`` too). Where the JAX package raises, the port raises the same
+error."""
 
 import bz2
 import gzip
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -103,18 +108,26 @@ def _same(a, b):
         assert a[1].dtype == b[1].dtype == np.uint8
 
 
-@pytest.fixture(params=["libdeflate", "libz", "gzip_module"])
+@pytest.fixture(params=["kssd", "kssd_no_libdeflate", "libdeflate", "libz",
+                        "gzip_module"])
 def route(request, monkeypatch):
+    if request.param.startswith("kssd"):
+        if native.get_lib() is None:
+            pytest.skip("native toolchain unavailable")
+    else:
+        monkeypatch.setattr(seqio, "_KSSD", False)
     if request.param == "libdeflate":
         if seqio._LIBDEFLATE is None or jax_seqio._LIBDEFLATE is None:
             pytest.skip("libdeflate is not installed")
-    else:
+    elif request.param != "kssd":
         monkeypatch.setattr(seqio, "_LIBDEFLATE", None)
         monkeypatch.setattr(jax_seqio, "_LIBDEFLATE", None)
     if request.param == "libz" and seqio._LIBZ is None:
         pytest.skip("the system zlib cannot be loaded")
     if request.param == "gzip_module":
         monkeypatch.setattr(seqio, "_LIBZ", None)
+    want = {"kssd_no_libdeflate": "kssd", "libz": "zlib", "gzip_module": "gzip module"}
+    assert seqio.inflate_route() == want.get(request.param, request.param)
     return request.param
 
 
@@ -193,8 +206,8 @@ class _SliceCountingBytes(bytes):
 
 
 class _CountingLib:
-    """libdeflate or libz with the input address and length of each
-    decompress call recorded."""
+    """libdeflate, libz or the port's helper with the input address and
+    length of each decompress call recorded."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -211,23 +224,34 @@ class _CountingLib:
         self.calls.append((zp._obj.next_in, zp._obj.avail_in))
         return self._lib.inflate(zp, flush)
 
+    def gzip_member(self, src, n_src, *rest):
+        self.calls.append((src, n_src))
+        return self._lib.gzip_member(src, n_src, *rest)
 
-@pytest.mark.parametrize("lib", ["libdeflate", "libz"])
+
+@pytest.mark.parametrize("lib", ["kssd", "libdeflate", "libz"])
 @pytest.mark.parametrize("n_members", [1, 90, 400])
 def test_members_read_in_place(lib, n_members, monkeypatch):
     """Each member is read at an address offset into the one input: one
     call a member (and one for each growth), no slice of the input
     longer than the four trailer bytes, and the calls walk the input
     front to back."""
-    name = {"libdeflate": "_LIBDEFLATE", "libz": "_LIBZ"}[lib]
-    if getattr(seqio, name) is None:
+    mod, name = {"kssd": (native, "gzip_member"), "libdeflate": (seqio, "_LIBDEFLATE"),
+                 "libz": (seqio, "_LIBZ")}[lib]
+    if lib == "kssd" and native.get_lib() is None:
+        pytest.skip("native toolchain unavailable")
+    if getattr(mod, name) is None:
         pytest.skip(f"{lib} cannot be loaded")
+    if lib != "kssd":
+        monkeypatch.setattr(seqio, "_KSSD", False)
     if lib == "libz":
         monkeypatch.setattr(seqio, "_LIBDEFLATE", None)
     body = FASTA[: 400 * 500]
     data = _SliceCountingBytes(_members(body, -(-len(body) // n_members)))
-    stub = _CountingLib(getattr(seqio, name))
-    monkeypatch.setattr(seqio, name, stub)
+    # the helper's wrapper is replaced by the stub's, which calls it
+    stub = _CountingLib(SimpleNamespace(gzip_member=native.gzip_member)
+                        if lib == "kssd" else getattr(seqio, name))
+    monkeypatch.setattr(mod, name, stub.gzip_member if lib == "kssd" else stub)
     out = seqio.inflate(data)
     assert out.tobytes() == body
     assert max(data.slices) <= 4

@@ -25,10 +25,13 @@ parse thread running, its spans on the host clock.
 ``--parse-split`` also splits the parse of one genome on one thread
 into reading the gzip file, inflating it and scanning it (the median
 milliseconds over the genomes, each the best of three), names the
-inflater this host loaded (libdeflate, the system zlib, or the gzip
-module where neither loads), and times the parse pool alone at 1, 2,
-4, 6, 7 and 8 workers (seconds for all the genomes, three passes
-each).
+inflater this host takes (``seqio.inflate_route()``: the port's own,
+"kssd", where its helper builds; else libdeflate, the system zlib, or
+the gzip module where neither loads), times one thread's inflate of the
+same genomes on every route this host can load (``inflate_ms_by_route``:
+kssd, libdeflate, zlib; their bytes held equal), and times the parse
+pool alone at 1, 2, 4, 6, 7 and 8 workers (seconds for all the genomes,
+three passes each).
 
 Run from the checkout's root, on a card::
 
@@ -188,19 +191,59 @@ POOL_WORKERS = (1, 2, 4, 6, 7, 8)
 
 
 def inflater(seqio) -> str:
-    """The library that inflates gzip into the parse's array on this
-    host; "gzip module" where neither loads (and on a tree from before
-    the system zlib was bound)."""
+    """The route that inflates gzip into the parse's array on this host
+    (``seqio.inflate_route()``: "kssd", "libdeflate", "zlib" or "gzip
+    module"); on a tree from before that function, "libdeflate" where it
+    is loaded, else "zlib" where the system zlib is bound, else "gzip
+    module"."""
+    if hasattr(seqio, "inflate_route"):
+        return seqio.inflate_route()
     if seqio._LIBDEFLATE is not None:
         return "libdeflate"
     return "zlib" if getattr(seqio, "_LIBZ", None) is not None else "gzip module"
 
 
+@contextlib.contextmanager
+def on_route(seqio, route: str):
+    """``seqio.inflate`` held to ``route`` while the block runs: the
+    port's inflater switched off (``seqio._KSSD = False``) for the
+    library routes, libdeflate unloaded for zlib's."""
+    own, lib = getattr(seqio, "_KSSD", None), seqio._LIBDEFLATE
+    if route != "kssd":
+        seqio._KSSD = False
+    if route == "zlib":
+        seqio._LIBDEFLATE = None
+    try:
+        if inflater(seqio) != route:
+            raise RuntimeError(f"cannot hold seqio.inflate to the {route} route")
+        yield
+    finally:
+        seqio._LIBDEFLATE = lib
+        if own is None:
+            del seqio._KSSD
+        else:
+            seqio._KSSD = own
+
+
+def routes(seqio, native) -> list[str]:
+    """Every route ``seqio.inflate`` can take on this host and tree."""
+    out = ["kssd"] if hasattr(seqio, "inflate_route") and native.get_lib() else []
+    if seqio._LIBDEFLATE is not None:
+        out.append("libdeflate")
+    if getattr(seqio, "_LIBZ", None) is not None:
+        out.append("zlib")
+    return out
+
+
 def parse_split(refs: str, passes: int = 3) -> dict:
     """One thread's read, inflate and scan milliseconds per genome, and
-    the pool's seconds at each of POOL_WORKERS. A tree from before
-    ``seqio.inflate`` (the bytes route) is split as it parses:
-    ``gzip_decompress``, then ``fasta_to_codes``."""
+    the pool's seconds at each of POOL_WORKERS; then one thread's inflate
+    of the same genomes on every route this host can load (the median
+    ms a genome, each the best of ``passes``; every route's bytes equal
+    to the first's). A tree from before ``seqio.inflate`` (the bytes
+    route) is split as it parses: ``gzip_decompress``, then
+    ``fasta_to_codes``."""
+    import hashlib
     import statistics
 
     from public_kssd_tpu_torch import infiles, native, pipeline, seqio
@@ -227,6 +270,27 @@ def parse_split(refs: str, passes: int = 3) -> dict:
             best = [min(b, t) for b, t in zip(best, (t1 - t0, t2 - t1, t3 - t2))]
         for key, b in zip(split, best):
             split[key].append(b * 1e3)
+    by_route = {}
+    if inflate is not None:  # the routes interleaved genome by genome
+        ms = {route: [] for route in routes(seqio, native)}
+        for path in files:
+            with open(path, "rb") as f:
+                data = f.read()
+            digests = set()
+            for route in ms:
+                best = float("inf")
+                with on_route(seqio, route):
+                    for _ in range(passes):
+                        t = time.perf_counter()
+                        buf = inflate(data)
+                        best = min(best, time.perf_counter() - t)
+                if buf is None:
+                    raise RuntimeError(f"the {route} route refused {path}")
+                digests.add(hashlib.blake2b(buf, digest_size=16).digest())
+                ms[route].append(best * 1e3)
+            if len(digests) != 1:
+                raise RuntimeError(f"the routes' bytes differ on {path}")
+        by_route = {route: statistics.median(v) for route, v in ms.items()}
     opts = pipeline.SketchOptions()
     pools = {}
     for w in POOL_WORKERS:
@@ -241,6 +305,7 @@ def parse_split(refs: str, passes: int = 3) -> dict:
         "route": "bytes" if inflate is None else "in place",
         "genomes": len(files),
         **{k: statistics.median(v) for k, v in split.items()},
+        "inflate_ms_by_route": by_route,
         "pool_s": pools,
     }
 
