@@ -62,7 +62,10 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               dist -r of them gives combco files byte-equal to the plain
               FASTA run's; logs the inflater the host loaded (libdeflate,
               the system zlib, or the gzip module) and the parse pool's
-              seconds over those files
+              seconds over those files; each reference's FASTA scanned
+              in place by native/kssd_scan.c's kssd_fasta_scan and by the
+              reference scanner kssd_fasta_to_codes, the same symbols,
+              with one thread's ms a file for each
   5. search-heavy main path: the 10,000-ref synthetic DB of phase 3 as a
               stage I directory, indexed and searched by 1,000 queries
               through the CLI; distance.out byte-equal to --cpu-count and
@@ -152,6 +155,7 @@ databases come from bench_torch/data.py, which the benchmark
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -1056,7 +1060,8 @@ def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:
     FASTA's bytes and to the library route's (``seqio._KSSD = False``:
     libdeflate, else the system zlib). Logs the routes, one
     thread's inflate of the files on each, and the parse pool's seconds
-    over them (``parsed_streams`` alone, its default workers)."""
+    over them (``parsed_streams`` alone, its default workers). Then
+    ``check_scan``."""
     import gzip
 
     from public_kssd_tpu_torch import infiles, pipeline, seqio
@@ -1126,6 +1131,42 @@ def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:
         f"{', '.join(f'{t:.3f}' for t in pool)} s")
     shutil.rmtree(gz_dir)
     shutil.rmtree(out)
+    check_scan(ref_dir, names)
+
+
+def check_scan(ref_dir: str, names: list[str]) -> None:
+    """Each reference's FASTA scanned in place by the port's scanner
+    (native/kssd_scan.c's kssd_fasta_scan, which read_codes takes) and
+    by the reference scanner (kssd_host.c's kssd_fasta_to_codes), each
+    on its own copy: the same symbols and count, else it raises. Logs one
+    thread's ms a file for each and the width of the loop this CPU
+    takes."""
+    from public_kssd_tpu_torch import native
+
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("the native helper did not build")
+    scanners = {"kssd_fasta_scan": lib.kssd_fasta_scan,
+                "kssd_fasta_to_codes": lib.kssd_fasta_to_codes}
+    took = dict.fromkeys(scanners, 0.0)
+    probe = np.zeros(1, np.uint8)
+    width = 32 if lib.kssd_fasta_scan_at(probe, 0, probe, 32) != ctypes.c_size_t(-1).value else 16
+    for name in names:
+        raw = np.fromfile(f"{ref_dir}/{name}", np.uint8)
+        got = []
+        for scanner, f in scanners.items():
+            buf = raw.copy()
+            t = time.perf_counter()
+            n = f(buf, buf.size, buf)
+            took[scanner] += time.perf_counter() - t
+            got.append(buf[:n])
+        if not np.array_equal(*got):
+            raise AssertionError(f"{name}: kssd_fasta_scan's symbols differ from "
+                                 f"kssd_fasta_to_codes' ({got[0].size} vs {got[1].size})")
+    log(f"[sketch-heavy] FASTA scan of the {len(names)} references in place, one thread, "
+        f"the {width}-byte loop: "
+        + ", ".join(f"{k} {v * 1e3 / len(names):.3f} ms" for k, v in took.items())
+        + " a file; the same symbols")
 
 
 def check_detect(path: str) -> None:

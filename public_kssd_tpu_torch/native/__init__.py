@@ -1,12 +1,14 @@
 """ctypes bindings for the native host helpers (kssd_host.c, kssd_print.c,
-kssd_dedup.c, kssd_inflate.c).
+kssd_dedup.c, kssd_inflate.c, kssd_scan.c).
 
 The C sources are this package's own: ``native/kssd_host.c``, a
 byte-equal copy of the JAX package's (tests/test_torch_package.py holds
 the two equal), ``native/kssd_print.c``, the distance.out block
 formatter, ``native/kssd_dedup.c``, the slot-order dedups that visit
-only the slots they fill, and ``native/kssd_inflate.c``, the gzip
-inflater of stage I's parse. All four are compiled on demand with the
+only the slots they fill, ``native/kssd_inflate.c``, the gzip inflater
+of stage I's parse, and ``native/kssd_scan.c``, its FASTA scanner (the
+symbols of kssd_host.c's ``kssd_fasta_to_codes``, 16-32 bytes a step).
+All five are compiled on demand with the
 system compiler into one library in ``build/public_kssd_tpu_torch/``
 under the checkout, under a name keyed by the sources' hash and flags,
 so a library built from other sources is never loaded. Plain ``-O3`` (no
@@ -33,7 +35,8 @@ _SRC = os.path.join(_HERE, "kssd_host.c")
 _PRINT_SRC = os.path.join(_HERE, "kssd_print.c")
 _DEDUP_SRC = os.path.join(_HERE, "kssd_dedup.c")
 _INFLATE_SRC = os.path.join(_HERE, "kssd_inflate.c")
-_SOURCES = (_SRC, _PRINT_SRC, _DEDUP_SRC, _INFLATE_SRC)
+_SCAN_SRC = os.path.join(_HERE, "kssd_scan.c")
+_SOURCES = (_SRC, _PRINT_SRC, _DEDUP_SRC, _INFLATE_SRC, _SCAN_SRC)
 BUILD_DIR = os.path.join(_ROOT, "build", "public_kssd_tpu_torch")
 _CFLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -98,6 +101,10 @@ def _load():
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     lib.kssd_fasta_to_codes.restype = ctypes.c_size_t
     lib.kssd_fasta_to_codes.argtypes = [u8p, ctypes.c_size_t, u8p]
+    lib.kssd_fasta_scan.restype = ctypes.c_size_t
+    lib.kssd_fasta_scan.argtypes = [u8p, ctypes.c_size_t, u8p]
+    lib.kssd_fasta_scan_at.restype = ctypes.c_size_t
+    lib.kssd_fasta_scan_at.argtypes = [u8p, ctypes.c_size_t, u8p, ctypes.c_int]
     lib.kssd_fastq_to_codes.restype = ctypes.c_size_t
     lib.kssd_fastq_to_codes.argtypes = [u8p, ctypes.c_size_t, ctypes.c_int, u8p]
     lib.kssd_dedup_slot_order_sparse.restype = ctypes.c_size_t
@@ -147,14 +154,14 @@ def _load():
 
 
 def fasta_to_codes(raw: bytes) -> np.ndarray | None:
-    """kssd_fasta_to_codes of ``raw`` into one new array; the symbols
-    are a view of it."""
+    """kssd_fasta_to_codes' symbols of ``raw`` (kssd_scan.c's
+    kssd_fasta_scan) into one new array; the symbols are a view of it."""
     lib = get_lib()
     if lib is None:
         return None
     data = np.frombuffer(raw, dtype=np.uint8)
     out = np.empty(max(data.size, 1), dtype=np.uint8)
-    return out[: lib.kssd_fasta_to_codes(data, data.size, out)]
+    return out[: lib.kssd_fasta_scan(data, data.size, out)]
 
 
 def fastq_to_codes(raw: bytes, min_qual: int = 0) -> np.ndarray | None:
@@ -203,8 +210,9 @@ def crc32(data) -> int | None:
 # byte at the write position has been read before it is written. The
 # fastq scanner finds a record's four lines before it writes any symbol
 # of it: its writes stay below the record's sequence line, its quality
-# reads above it. kssd_host.c's pointers are not restrict, so the
-# aliasing is legal C.
+# reads above it. The FASTA scanner's block stores write only below its
+# next read (kssd_scan.c). Neither source's pointers are restrict, so
+# the aliasing is legal C.
 
 
 def _writable(buf: np.ndarray) -> np.ndarray:
@@ -221,7 +229,7 @@ def fasta_codes_in_place(buf: np.ndarray) -> np.ndarray | None:
     if lib is None:
         return None
     buf = _writable(buf)
-    return buf[: lib.kssd_fasta_to_codes(buf, buf.size, buf)]
+    return buf[: lib.kssd_fasta_scan(buf, buf.size, buf)]
 
 
 def fastq_codes_in_place(buf: np.ndarray, min_qual: int = 0) -> np.ndarray | None:

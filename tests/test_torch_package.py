@@ -41,7 +41,10 @@ DIFFERING = {
     # adds the port's gzip inflater, native/kssd_inflate.c, built into
     # the same library (_INFLATE_SRC), bound as gzip_member (one member
     # between addresses, its INFLATE_* result codes) and crc32; the
-    # original has no inflater of its own
+    # original has no inflater of its own; the FASTA scanners' wrappers
+    # (fasta_to_codes, fasta_codes_in_place) call the port's own vector
+    # scanner, native/kssd_scan.c's kssd_fasta_scan (_SCAN_SRC), which
+    # gives kssd_fasta_to_codes' symbols 16-32 bytes a step
     "native/__init__": {"_so_path", "_build", "get_lib", "_SRC", "_SO",
                         "_ROOT", "_HERE", "BUILD_DIR", "_CFLAGS", "_PRINT_SRC",
                         "Names", "dist_rows_buf", "dist_row",
@@ -49,7 +52,7 @@ DIFFERING = {
                         "dedup_slot_order", "dedup_counts", "_load", "_LOCK",
                         "fasta_to_codes", "fastq_to_codes", "_writable",
                         "fasta_codes_in_place", "fastq_codes_in_place",
-                        "_INFLATE_SRC", "gzip_member", "crc32"},
+                        "_INFLATE_SRC", "gzip_member", "crc32", "_SCAN_SRC"},
     # a small file's bytes land in one array and are scanned there
     # (read_codes): the port's own inflater (native/kssd_inflate.c through
     # native.gzip_member, _inflate_kssd; _KSSD = False turns it off),
@@ -255,16 +258,57 @@ def test_native_helper_builds_from_its_own_source():
     assert native._PRINT_SRC == os.path.join(PORT_PKG, "native", "kssd_print.c")
     assert native._DEDUP_SRC == os.path.join(PORT_PKG, "native", "kssd_dedup.c")
     assert native._INFLATE_SRC == os.path.join(PORT_PKG, "native", "kssd_inflate.c")
+    assert native._SCAN_SRC == os.path.join(PORT_PKG, "native", "kssd_scan.c")
     assert native._SOURCES == (native._SRC, native._PRINT_SRC, native._DEDUP_SRC,
-                               native._INFLATE_SRC)
+                               native._INFLATE_SRC, native._SCAN_SRC)
     lib = native.get_lib()
     assert lib is not None
     assert lib.kssd_dist_rows_buf and lib.kssd_fasta_to_codes
     assert lib.kssd_dedup_slot_order_sparse and lib.kssd_dedup_counts_sparse
     assert lib.kssd_gzip_inflate and lib.kssd_crc32
+    assert lib.kssd_fasta_scan and lib.kssd_fasta_scan_at
     assert os.path.dirname(native._so_path()) == os.path.join(
         REPO, "build", "public_kssd_tpu_torch"
     )
+
+
+@pytest.mark.parametrize("suffix", [".fa", ".fa.gz", ".fa.bz2"])
+def test_read_codes_scans_with_the_ports_scanner(tmp_path, monkeypatch, suffix):
+    """seqio.read_codes reaches kssd_scan.c's kssd_fasta_scan once a file
+    (in place for a plain and a gzip file, into a new array for bz2) and
+    never kssd_fasta_to_codes: the library behind native's wrappers is
+    replaced by one that counts the two scanners' calls."""
+    import bz2
+    import gzip
+
+    from public_kssd_tpu_torch import native, seqio
+
+    lib = native.get_lib()
+    if lib is None:
+        pytest.skip("native toolchain unavailable")
+    body = b">a genome\n" + b"ACGTTGCAacgtNNNN" * 500 + b"\n>b\r\n" + b"GATTACA\n" * 300
+    path = tmp_path / f"g{suffix}"
+    path.write_bytes({".fa": body, ".fa.gz": gzip.compress(body),
+                      ".fa.bz2": bz2.compress(body)}[suffix])
+    want = seqio.fasta_to_codes_py(body)
+    calls = []
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def kssd_fasta_scan(self, *args):
+            calls.append("kssd_fasta_scan")
+            return lib.kssd_fasta_scan(*args)
+
+        def kssd_fasta_to_codes(self, *args):
+            calls.append("kssd_fasta_to_codes")
+            return lib.kssd_fasta_to_codes(*args)
+
+    monkeypatch.setattr(native, "get_lib", Counting)
+    got = seqio.read_codes(str(path))
+    assert calls == ["kssd_fasta_scan"]
+    assert got.tobytes() == want.tobytes() and want.size > 8000
 
 
 def test_native_helper_first_use_from_many_threads(tmp_path, monkeypatch):

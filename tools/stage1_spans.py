@@ -31,7 +31,11 @@ the gzip module where neither loads), times one thread's inflate of the
 same genomes on every route this host can load (``inflate_ms_by_route``:
 kssd, libdeflate, zlib; their bytes held equal), and times the parse
 pool alone at 1, 2, 4, 6, 7 and 8 workers (seconds for all the genomes,
-three passes each).
+three passes each). Between the two, one thread's scan of the same
+genomes by scanner (``scan_ms_by_route``: the reference
+``kssd_fasta_to_codes`` against native/kssd_scan.c's loops, on a copy
+of the inflated bytes; ``scan_ms_after_inflate``: the reference and
+``kssd_fasta_scan`` right after each inflater route).
 
 Run from the checkout's root, on a card::
 
@@ -235,6 +239,93 @@ def routes(seqio, native) -> list[str]:
     return out
 
 
+def scanners(native) -> dict:
+    """The FASTA scanners this tree's helper binds, each f(buf) scanning
+    ``buf`` in place and returning the symbols' count: the reference,
+    ``kssd_fasta_to_codes``; on a tree with native/kssd_scan.c also
+    ``kssd_fasta_scan`` (the loop this CPU takes) and its SSE2 and SWAR
+    loops through ``kssd_fasta_scan_at``."""
+    lib = native.get_lib()
+    out = {"kssd_fasta_to_codes": lambda b: lib.kssd_fasta_to_codes(b, b.size, b)}
+    if hasattr(lib, "kssd_fasta_scan"):
+        out["kssd_fasta_scan"] = lambda b: lib.kssd_fasta_scan(b, b.size, b)
+        for w in (16, 8):
+            out[f"kssd_fasta_scan_at {w}"] = (
+                lambda w: lambda b: lib.kssd_fasta_scan_at(b, b.size, b, w))(w)
+    return out
+
+
+def scan_split(files: list[str], inflate, seqio, native, passes: int) -> dict:
+    """One thread's scan of each genome in place, the median ms a genome
+    (each the best of ``passes``), the scanners interleaved genome by
+    genome, their symbols held equal:
+
+    * ``scan_ms_by_route``: every scanner of ``scanners`` on a copy of
+      the inflated bytes made just before it (the bytes in cache), and
+      ``kssd_fasta_scan`` on the same bases with no line ends
+      (``one line``: what the lines' ends cost it);
+    * ``scan_ms_after_inflate``: the reference and ``kssd_fasta_scan``
+      right after each inflater route has written the array, as the
+      parse pool runs them."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    scan = scanners(native)
+    by_route = {name: [] for name in scan}
+    if "kssd_fasta_scan" in scan:
+        by_route["kssd_fasta_scan, one line"] = []
+    pair = {k: scan[k] for k in ("kssd_fasta_to_codes", "kssd_fasta_scan") if k in scan}
+    after = {(route, name): [] for route in routes(seqio, native) for name in pair}
+
+    def best(f, fresh) -> tuple[float, bytes]:
+        ms = float("inf")
+        for _ in range(passes):
+            buf = fresh()
+            t = time.perf_counter()
+            n = f(buf)
+            ms = min(ms, (time.perf_counter() - t) * 1e3)
+        return ms, hashlib.blake2b(buf[:n], digest_size=16).digest()
+
+    for path in files:
+        with open(path, "rb") as f:
+            data = f.read()
+        raw = inflate(data)
+        head = int(np.flatnonzero(raw == ord("\n"))[0]) + 1
+        one_line = np.concatenate([raw[:head], raw[head:][raw[head:] != ord("\n")]])
+        work = np.empty_like(raw)
+
+        def copy(src):
+            def fresh():
+                out = work[: src.size]
+                np.copyto(out, src)
+                return out
+            return fresh
+
+        digests = set()
+        for name, f in scan.items():
+            ms, digest = best(f, copy(raw))
+            by_route[name].append(ms)
+            digests.add(digest)
+        if "kssd_fasta_scan" in scan:
+            by_route["kssd_fasta_scan, one line"].append(best(scan["kssd_fasta_scan"],
+                                                              copy(one_line))[0])
+        for route, name in after:
+            with on_route(seqio, route):
+                ms, digest = best(pair[name], lambda: inflate(data))
+            after[route, name].append(ms)
+            digests.add(digest)
+        if len(digests) != 1:
+            raise RuntimeError(f"the scanners' symbols differ on {path}")
+    return {
+        "scan_ms_by_route": {k: statistics.median(v) for k, v in by_route.items()},
+        "scan_ms_after_inflate": {
+            route: {name: statistics.median(after[route, name]) for name in pair}
+            for route in routes(seqio, native)},
+    }
+
+
 def parse_split(refs: str, passes: int = 3) -> dict:
     """One thread's read, inflate and scan milliseconds per genome, and
     the pool's seconds at each of POOL_WORKERS; then one thread's inflate
@@ -291,6 +382,7 @@ def parse_split(refs: str, passes: int = 3) -> dict:
             if len(digests) != 1:
                 raise RuntimeError(f"the routes' bytes differ on {path}")
         by_route = {route: statistics.median(v) for route, v in ms.items()}
+    scans = {} if inflate is None else scan_split(files, inflate, seqio, native, passes)
     opts = pipeline.SketchOptions()
     pools = {}
     for w in POOL_WORKERS:
@@ -306,6 +398,7 @@ def parse_split(refs: str, passes: int = 3) -> dict:
         "genomes": len(files),
         **{k: statistics.median(v) for k, v in split.items()},
         "inflate_ms_by_route": by_route,
+        **scans,
         "pool_s": pools,
     }
 
