@@ -71,11 +71,15 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               through the CLI; distance.out byte-equal to --cpu-count and
               to dist -p 1 (the print on one thread); the print stage
               logged with its thread count (dist -p's default: every CPU
-              the process may use), and the count stage with its spans
-              (count.queries, count.index, count.kernel, count.fetch,
+              the process may use), and the load_index and count stages
+              with their spans (index.read, index.wait, index.directory;
+              count.queries, count.index, count.kernel, count.fetch,
               count.skf; on the host clock, as tools/print_spans.py
               --clock reads them) and no sharedk_ct.dat written (no
-              --keepskf, no -m); first, the %.6lf and %E field writers
+              --keepskf, no -m); the database loaded onto the card both
+              ways, DeviceIndex.from_sparse of load_sparse_index and
+              index.load_device_index (the search's route), every tensor
+              equal, both walls logged; first, the %.6lf and %E field writers
               of native/kssd_print.c against this host's snprintf on
               10^7 seeded doubles and the corner list
               (native.field_values), no difference allowed, with the share
@@ -88,7 +92,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               byte-equal between --device cuda and --device cpu; the
               stage I timer's stages logged, dedup among them (the
               slot-order dedup of native/kssd_dedup.c, over the filled
-              slots of a 536,870,909-slot table at L3K12)
+              slots of a 536,870,909-slot table at L3K12); the 256
+              components' index loaded both ways, as in phase 5
   7. abundance main path through the CLI:
      7a. metagenome reads: 2 FASTQ samples of 1,000,000 x 150 bp reads,
               90% drawn from 12 of phase 4's 64 references (shares a
@@ -1230,6 +1235,48 @@ def check_field_writers(smi: str) -> None:
                 f"went through snprintf; {smi}")
 
 
+def compare_index_loads(sref: str, smi: str, tag: str) -> None:
+    """A database loaded onto the card both ways, host, device, device,
+    host: ``DeviceIndex.from_sparse`` of ``load_sparse_index``'s host
+    arrays and ``index.load_device_index`` (the files read into pinned
+    staging and uploaded as they are read). Every tensor, the directory's
+    shift and n_ref must be equal."""
+    import torch
+
+    from public_kssd_tpu_torch import index
+    from public_kssd_tpu_torch.ops import count
+
+    dev = torch.device("cuda", 0)
+    walls: dict[str, list[float]] = {"host": [], "device": []}
+    loaded = {}
+    for route in ("host", "device", "device", "host"):
+        loaded.pop(route, None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if route == "host":
+            _, comps = index.load_sparse_index(sref)
+            comps = [count.DeviceIndex.from_sparse(sp, dev) for sp in comps]
+        else:
+            _, comps = index.load_device_index(sref, dev)
+        torch.cuda.synchronize()
+        walls[route].append(round(time.perf_counter() - t, 4))
+        loaded[route] = comps
+    for c, (a, b) in enumerate(zip(loaded["host"], loaded["device"], strict=True)):
+        for f in ("uniq", "offsets", "gids", "dir"):
+            ta, tb = getattr(a, f), getattr(b, f)
+            if ta.dtype != tb.dtype or ta.device != tb.device or not torch.equal(ta, tb):
+                raise AssertionError(f"component {c}: {f} differs between the "
+                                     "host route and load_device_index")
+        if (a.dir_shift, a.n_ref) != (b.dir_shift, b.n_ref):
+            raise AssertionError(f"component {c}: directory shift or n_ref differs")
+    nbytes = sum(t.numel() * t.element_size() for comp in loaded["device"]
+                 for t in (comp.uniq, comp.offsets, comp.gids))
+    log(f"[{tag}] index load of {len(loaded['device'])} components, {nbytes} B, "
+        f"onto the card, every tensor equal: host route (np.fromfile, from_sparse) {walls['host']} s, "
+        f"load_device_index {walls['device']} s ({index.INDEX_READ_THREADS} "
+        f"read threads, {index.INDEX_BLOCK} B buffers); {smi}")
+
+
 def phase_search_heavy(work: str, synth, smi: str) -> None:
     import torch
 
@@ -1268,10 +1315,11 @@ def phase_search_heavy(work: str, synth, smi: str) -> None:
         f"CLI wall incl. index load and distance.out print); --cpu-count "
         f"{t_cpu:.3f} s; {smi}")
     spans = {k: round(v, 6) for k, v in clock.self_s.items()
-             if k == "count" or k.startswith("count.")}
+             if k.startswith(("count", "index.", "load_index"))}
     log(f"[search-heavy] count stage {stages['count']:.3f} s (load_index "
-        f"{stages['load_index']:.3f} s); its spans' self seconds on the host "
+        f"{stages['load_index']:.3f} s); the spans' self seconds on the host "
         f"clock: {spans}; {smi}")
+    compare_index_loads(sref, smi, "search-heavy")
     log(f"[search-heavy] print stage {stages['print']:.3f} s on "
         f"{stats_ops.print_threads(0)} threads (dist -p default: the CPUs of "
         f"sched_getaffinity; os.cpu_count() {os.cpu_count()}); with -p 1: print "
@@ -1341,6 +1389,7 @@ def phase_wide(work: str, smi: str) -> dict[str, float]:
         f"stage I timer {wall1:.3f} s ({N_WIDE_REFS / wall1:.3f} genomes/s), "
         f"dedup {stage1.get('dedup', 0.0):.3f} s = share "
         f"{stage1.get('dedup', 0.0) / wall1:.3f} [{stage1}]; {smi}")
+    compare_index_loads(f"{root}/ref", smi, "wide")
     log(f"[wide] stage I queries {t_qry:.3f} s; search "
         f"{N_WIDE_QRYS * N_WIDE_REFS} pairs in {t_search:.3f} s CLI wall, count "
         f"stage {search_stages.get('count', 0.0):.3f} s over {comps} components, "

@@ -287,7 +287,8 @@ def _upload_table(qtable, device: torch.device):
 def _csr_stats_device(components, qtables, n_qry: int, n_ref: int,
                       device: torch.device) -> list[tuple]:
     """Per-query stats6 via the INVERTED-index join: ``components`` are
-    SparseIndex objects whose device residency is shared with search
+    the DeviceIndex objects of ``index.load_device_index``, or SparseIndex
+    objects whose device residency is shared with search
     (``ops.count.DeviceIndex.from_sparse`` caches it on the index: one
     upload per process); ``qtables`` the per-component query tables."""
     qid_shift = 16 + max(int(n_ref).bit_length(), 1)
@@ -432,10 +433,11 @@ def species_abundance(
     ``device=None`` runs the host oracle (a per-query vectorised join
     over the raw DB codes). A torch device runs ``join_kernel`` there
     for all queries at once: over the stage II inverted index when
-    ``ref_components`` (SparseIndex per component) are given or the ref
-    dir carries the CSR sidecar (mco.uniq.<c>) — the index search uses,
-    so a composite after a search in one process uploads it once — else
-    over the raw DB codes. Every backend yields the same integer
+    ``ref_components`` (SparseIndex or DeviceIndex per component) are
+    given — the index search uses, so a composite after a search in one
+    process uploads it once — or the ref dir carries the CSR sidecar
+    (mco.uniq.<c>), which ``index.load_device_index`` reads straight onto
+    the device; else over the raw DB codes. Every backend yields the same integer
     aggregates, so the report text is the same bytes."""
     ref_stat = formats.read_co_stat(ref_dir)
     qry_stat = formats.read_co_stat(qry_dir)
@@ -462,7 +464,7 @@ def species_abundance(
             from public_kssd_tpu_torch import index as index_mod
 
             with timer.stage("load"):
-                _, ref_components = index_mod.load_sparse_index(ref_dir)
+                _, ref_components = index_mod.load_device_index(ref_dir, device)
         if ref_components is not None:
             route = "csr"
             if ref_components[0].n_genomes != n_ref:

@@ -10,18 +10,25 @@ component's codes (postings order = code ascending, genome ascending —
 bit-identical to the reference's insertion order), and the in-memory /
 on-device representation is CSR over the *occupied* rows only
 (unique codes + offsets + postings). The dense on-disk format is kept as
-an export for byte-compatibility; the sparse form is what search loads.
+an export for byte-compatibility; the sparse form is what search loads:
+on one device straight onto it (``load_device_index``), elsewhere into
+host arrays (``load_sparse_index``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
 
-from public_kssd_tpu_torch import formats
+from public_kssd_tpu_torch import formats, resolve_device
+from public_kssd_tpu_torch.ops import staging
+from public_kssd_tpu_torch.ops.count import HOST_DIRECTORY_KEYS, DeviceIndex
 
 _SIGN = np.uint64(1 << 63)
 
@@ -187,6 +194,222 @@ def load_sparse_index(mco_dir: str) -> tuple[formats.McoStat, list[SparseIndex]]
             continue
         row_offset, gids = formats.read_mco_component(mco_dir, c)
         comps.append(dense_to_sparse(row_offset, gids, stat.infile_num))
+    return stat, comps
+
+
+# bytes a staging buffer of the index loader holds, and the threads that
+# read the index files into the buffers
+INDEX_BLOCK = 1 << 24
+INDEX_READ_THREADS = 4
+
+_READERS: dict[tuple[int, int], ThreadPoolExecutor] = {}
+_READERS_LOCK = threading.Lock()
+
+
+def _readers(n: int) -> ThreadPoolExecutor:
+    """A pool of ``n`` threads that read index files: started by the
+    first load that uses it and kept for the process, as the staging
+    buffers are, so that a later load starts no thread. Keyed by process
+    id too: a forked child has none of its parent's threads."""
+    key = (os.getpid(), n)
+    with _READERS_LOCK:
+        if key not in _READERS:
+            _READERS[key] = ThreadPoolExecutor(n, thread_name_prefix="kssd-index-read")
+        return _READERS[key]
+
+
+# each file's bytes start at a multiple of this in the device buffer that
+# holds the index (cudaMalloc's own alignment), so every view is aligned
+_ALIGN = 256
+
+
+def _pread_full(fd: int, buf: np.ndarray, offset: int) -> None:
+    """Fill ``buf`` (uint8) from ``fd`` at ``offset``; ``os.preadv``
+    releases the GIL while it reads."""
+    view = memoryview(buf)
+    done = 0
+    while done < view.nbytes:
+        got = os.preadv(fd, [view[done:]], offset + done)
+        if got == 0:
+            raise ValueError(f"index file ended {view.nbytes - done} bytes early")
+        done += got
+
+
+def _read_pieces(buf: np.ndarray, pieces: list[tuple[int, int, int, int]]) -> None:
+    """Read each piece (file descriptor, file offset, bytes, offset in
+    ``buf``)."""
+    for fd, at, n, to in pieces:
+        _pread_full(fd, buf[to:to + n], at)
+
+
+def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
+                  st: staging.Staging, pool: ThreadPoolExecutor, depth: int) -> None:
+    """The bytes of ``files`` (descriptor, size, offset in ``out``,
+    ascending) into ``out`` (uint8 on the device): ``out`` is cut into
+    pieces of a staging buffer's size, each read by ``pool`` from the
+    files it covers into the next staging buffer, up to ``depth`` pieces
+    at a time, and uploaded into its place once read, in order. On return
+    every upload is queued and torch's current stream waits for them; a
+    buffer is read into again only once its last upload has ended."""
+    span = torch.profiler.record_function
+    block = st.host[0].size
+    pending: collections.deque = collections.deque()
+
+    def upload_oldest() -> None:
+        read, slot, dest = pending.popleft()
+        with span("index.read"):
+            read.result()
+        st.upload(slot, dest.numel(), out=dest)
+
+    fi = slot = 0
+    try:
+        for c0 in range(0, out.numel(), block):
+            c1 = min(c0 + block, out.numel())
+            pieces = []
+            while fi < len(files) and files[fi][2] < c1:
+                fd, size, at = files[fi]
+                lo, hi = max(at, c0), min(at + size, c1)
+                if hi > lo:
+                    pieces.append((fd, lo - at, hi - lo, lo - c0))
+                if at + size > c1:
+                    break
+                fi += 1
+            if len(pending) >= depth:
+                upload_oldest()
+            with span("index.wait"):
+                buf = st.writable(slot)
+            pending.append((pool.submit(_read_pieces, buf, pieces), slot, out[c0:c1]))
+            slot = (slot + 1) % st.count
+        while pending:
+            upload_oldest()
+    finally:
+        # no read may still use a buffer or a descriptor once they are given
+        # back
+        wait([read for read, *_ in pending])
+
+
+# components whose files a load holds open at once (three files each)
+_OPEN_COMPONENTS = 64
+
+
+@dataclasses.dataclass
+class _Sidecar:
+    """One component's open CSR files: (descriptor, size, offset in the
+    device buffer) for uniq, offsets and gids, and the buffer offset past
+    them; the postings total and the largest key, and a small index's
+    keys, read on the host."""
+
+    files: list[tuple[int, int, int]]
+    end: int
+    total: int
+    max_key: int
+    host_keys: torch.Tensor | None
+
+
+def _tail(fd: int, size: int, width: int) -> int:
+    """The last ``width``-byte little-endian value of a file (0 if empty)."""
+    return int.from_bytes(os.pread(fd, width, size - width), "little") if size else 0
+
+
+def _open_sidecar(mco_dir: str, c: int, at: int, fds: list[int]) -> _Sidecar | None:
+    """Component ``c``'s sidecar, opened once (each descriptor appended to
+    ``fds``), its files placed in the device buffer from ``at`` on, each
+    at a multiple of ``_ALIGN``; None when it has no sidecar (the
+    reference binary's dense-only database)."""
+    paths = (*_csr_paths(mco_dir, c), formats.mco_path(mco_dir, c))
+    files = []
+    for i, (path, width) in enumerate(zip(paths, (4, 8, 4))):
+        try:
+            fd = os.open(path, os.O_RDONLY)
+        except FileNotFoundError:
+            if i == 2:  # a sidecar without its postings
+                raise
+            return None
+        fds.append(fd)
+        size = os.fstat(fd).st_size
+        if size % width:
+            raise ValueError(f"{path}: {size} bytes is not a whole number "
+                             f"of {width}-byte values")
+        files.append((fd, size, at))
+        at += -(-size // _ALIGN) * _ALIGN
+    (fu, su, _), (fo, so, _), _ = files
+    host_keys = None
+    if su <= 4 * HOST_DIRECTORY_KEYS:
+        host_keys = torch.from_numpy(np.empty(su // 4, np.int32))
+        _pread_full(fu, host_keys.numpy().view(np.uint8), 0)
+    return _Sidecar(files, at, _tail(fo, so, 8), _tail(fu, su, 4), host_keys)
+
+
+def _load_components(mco_dir: str, cs: range, n_ref: int, device: torch.device,
+                     st: staging.Staging, threads: int) -> list[DeviceIndex]:
+    """Components ``cs`` of an index directory as DeviceIndex objects:
+    their sidecars' files in one device buffer, whose views they are,
+    read on ``threads`` threads."""
+    fds: list[int] = []
+    try:
+        sidecars, end = [], 0
+        for c in cs:
+            sidecars.append(_open_sidecar(mco_dir, c, end, fds))
+            end = sidecars[-1].end if sidecars[-1] else end
+        buf = torch.empty(end, dtype=torch.uint8, device=device)
+        _upload_files([f for sc in sidecars if sc for f in sc.files], buf, st,
+                      _readers(threads), threads)
+    finally:
+        for fd in fds:
+            os.close(fd)
+    comps = []
+    for c, sc in zip(cs, sidecars):
+        if sc is None:
+            row_offset, gids = formats.read_mco_component(mco_dir, c)
+            comps.append(DeviceIndex.from_sparse(
+                dense_to_sparse(row_offset, gids, n_ref), device))
+            continue
+        (_, su, ou), (_, so, oo), (_, sg, og) = sc.files
+        with torch.profiler.record_function("index.directory"):
+            comps.append(DeviceIndex.checked(
+                buf[ou:ou + su].view(torch.int32), buf[oo:oo + so].view(torch.int64),
+                buf[og:og + sg].view(torch.int32), n_ref, device,
+                total=sc.total, max_key=sc.max_key, host_keys=sc.host_keys,
+            ))
+    return comps
+
+
+def load_device_index(mco_dir: str, device: torch.device
+                      ) -> tuple[formats.McoStat, list[DeviceIndex]]:
+    """Load an index directory straight onto ``device``: its stat and one
+    ``DeviceIndex`` a component, equal to ``DeviceIndex.from_sparse`` of
+    ``load_sparse_index``'s components, without a host copy of the index.
+
+    The CSR sidecar's files (mco.uniq.<c> ``<u4``, mco.csroff.<c> ``<u8``,
+    mco.<c> ``<u4``) hold the bit views a DeviceIndex keeps, so they go
+    unconverted into a device buffer, each file at an aligned offset,
+    whose views the DeviceIndex tensors are (one buffer for up to
+    ``_OPEN_COMPONENTS`` components, whose files are open at once, each
+    opened once). The buffer is filled ``INDEX_BLOCK`` bytes at a time:
+    each piece is read by one of ``INDEX_READ_THREADS`` threads from the
+    files it covers into a staging buffer (``ops/staging.py``: pinned on
+    a card; threads and buffers are kept for the process) and uploaded
+    into its place on a side stream as soon as it is read, while the next
+    pieces are read; a staging buffer is read into again once its upload
+    has ended. Many small components (256 at L3K12) so share a few reads
+    and uploads. On the host only the last offset and the last key of
+    each component are read, and the keys of an index of at most
+    ``HOST_DIRECTORY_KEYS`` keys, whose directory is built there. A
+    component with only the reference's dense mco.index.<c> (a database
+    built by the reference binary) is read on the host and uploaded by
+    ``from_sparse``. On a card a failed pin, stream or copy raises: there
+    is no fallback to the host route. Spans: ``index.read`` (waiting for a
+    read), ``index.wait`` (a staging buffer waiting for its upload) and
+    ``index.directory`` (the checks and the bucket directory)."""
+    device = resolve_device(device)
+    stat = formats.read_mco_stat(mco_dir)
+    threads = INDEX_READ_THREADS
+    comps: list[DeviceIndex] = []
+    with staging.borrow(device, INDEX_BLOCK, threads + 2) as st:
+        for c0 in range(0, stat.comp_num, _OPEN_COMPONENTS):
+            cs = range(c0, min(c0 + _OPEN_COMPONENTS, stat.comp_num))
+            comps += _load_components(mco_dir, cs, stat.infile_num, device, st,
+                                      threads)
     return stat, comps
 
 

@@ -143,13 +143,24 @@ class DeviceIndex:
     dir: torch.Tensor
     dir_shift: int
 
+    @property
+    def n_genomes(self) -> int:
+        """``n_ref`` under ``index.SparseIndex``'s name, so that callers
+        that take either kind of component read it alike."""
+        return self.n_ref
+
     @classmethod
     def from_sparse(cls, sparse_index, device: torch.device) -> "DeviceIndex":
         """The device-resident form of an ``index.SparseIndex`` (numpy
         ``uniq_codes`` <u4, ``offsets`` <u8, ``gids`` <u4), cached on the
         index object: -m batched search runs many counting calls against
-        one DB and uploads it once."""
+        one DB and uploads it once. A ``DeviceIndex`` on ``device`` (what
+        ``index.load_device_index`` loads) is returned as it is."""
         device = resolve_device(device)
+        if isinstance(sparse_index, cls):
+            if sparse_index.device != device:
+                raise ValueError(f"index is on {sparse_index.device}, not {device}")
+            return sparse_index
         cached = getattr(sparse_index, "_device_index", None)
         if cached is not None and cached.device == device:
             return cached
@@ -174,31 +185,48 @@ class DeviceIndex:
         so the host copies nothing; other dtypes are converted first."""
         device = resolve_device(device)
         offs = np.asarray(offsets)
-        if offs.size and int(offs[-1]) >= 1 << 63:
-            raise ValueError("postings total does not fit int64")
         gids = np.asarray(gids)
-        # a wider dtype is checked before it is narrowed; 4-byte ids on
-        # the device, where uint32 ids >= 2^31 read as negative int32
+        # a wider dtype is checked before it is narrowed to 4 bytes
         if gids.dtype.itemsize > 4 and gids.size and int(gids.max()) >= 1 << 31:
-            raise ValueError("genome ids must be < 2^31")
-        gids_dev = _int_view(gids, 4).to(device)
-        if gids_dev.numel() and bool(gids_dev.min() < 0):
             raise ValueError("genome ids must be < 2^31")
         uniq = np.asarray(uniq)
         host_keys = _key_view(uniq)
-        keys = host_keys.to(device)
-        # a small index builds its directory on the host, where its few
-        # tensor operations cost less than as device launches (an L3K12
-        # search uploads 256 small component indexes); a large one on the
-        # device, where a host search over millions of keys is slow
+        return cls.checked(
+            host_keys.to(device), _int_view(offs, 8).to(device),
+            _int_view(gids, 4).to(device), n_ref, device,
+            total=int(offs[-1]) if offs.size else 0,
+            max_key=int(uniq[-1]) if uniq.size else 0,
+            host_keys=host_keys if uniq.size <= HOST_DIRECTORY_KEYS else None,
+        )
+
+    @classmethod
+    def checked(cls, keys: torch.Tensor, offsets: torch.Tensor,
+                gids: torch.Tensor, n_ref: int, device: torch.device, *,
+                total: int, max_key: int,
+                host_keys: torch.Tensor | None = None) -> "DeviceIndex":
+        """The index over a CSR already on ``device`` (``keys`` int32 /
+        int64 bit views, ``offsets`` int64, ``gids`` int32), once it is
+        checked, with its bucket directory: ``total`` (the postings
+        total, the last offset, read on the host) must be below 2^63 and
+        every genome id below 2^31 (4-byte ids >= 2^31 read as negative
+        int32; checked on the device); ``max_key`` is the largest key as
+        an unsigned integer. ``host_keys``, the keys on the host, is given
+        for an index of at most ``HOST_DIRECTORY_KEYS`` keys, whose
+        directory is built there: its few tensor operations cost less
+        than as device launches (an L3K12 search loads 256 small
+        component indexes); a large one builds it on the device, where a
+        host search over millions of keys is slow."""
+        if total >= 1 << 63:
+            raise ValueError("postings total does not fit int64")
+        if gids.numel() and bool(gids.min() < 0):
+            raise ValueError("genome ids must be < 2^31")
         directory, shift = bucket_directory(
-            host_keys if uniq.size <= HOST_DIRECTORY_KEYS else keys,
-            int(uniq[-1]) if uniq.size else 0,
+            keys if host_keys is None else host_keys, max_key
         )
         return cls(
             uniq=keys,
-            offsets=_int_view(offs, 8).to(device),
-            gids=gids_dev,
+            offsets=offsets,
+            gids=gids,
             n_ref=int(n_ref),
             device=device,
             dir=directory.to(device),

@@ -40,9 +40,7 @@ and wide geometries share this path.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import threading
 from collections.abc import Callable
 
 import numpy as np
@@ -50,6 +48,7 @@ import torch
 
 from public_kssd_tpu_torch import kernels, resolve_device, shufspace
 from public_kssd_tpu_torch.config import SketchParams
+from public_kssd_tpu_torch.ops.staging import Staging, borrow
 from public_kssd_tpu_torch.seqio import BREAK
 
 # dense code of a dropped window: int32 -1 (uint32 0xFFFFFFFF) for narrow
@@ -338,74 +337,7 @@ def pack2_torch(symbols: torch.Tensor, total: int) -> torch.Tensor:
     return by.view(torch.int32)
 
 
-# host buffers a stream rotates its chunks through: one is filled while
-# the uploads of the others run
-STAGING_BUFFERS = 3
-
-
-class _Staging:
-    """``STAGING_BUFFERS`` host buffers of ``block`` symbols that a stream
-    assembles its chunks in, pinned for a card, with the side stream that
-    uploads them and the event that ends each one's last upload."""
-
-    def __init__(self, device: torch.device, block: int):
-        self.device = device
-        cuda = device.type == "cuda"
-        self.bufs = [torch.empty(block, dtype=torch.uint8, pin_memory=cuda)
-                     for _ in range(STAGING_BUFFERS)]
-        self.host = [b.numpy() for b in self.bufs]
-        self.events: list[torch.cuda.Event | None] = [None] * STAGING_BUFFERS
-        self.stream = torch.cuda.Stream(device) if cuda else None
-
-    def writable(self, i: int) -> np.ndarray:
-        """Buffer ``i`` as a numpy array, once its last upload has ended."""
-        if self.events[i] is not None:
-            self.events[i].synchronize()
-            self.events[i] = None
-        return self.host[i]
-
-    def upload(self, i: int, n: int) -> torch.Tensor:
-        """The first ``n`` symbols of buffer ``i`` on the device. On a card
-        the copy runs on the side stream, and torch's current stream,
-        where the kernels launch, waits for it."""
-        if self.stream is None:
-            return self.bufs[i][:n].clone()
-        with torch.cuda.device(self.device):
-            current = torch.cuda.current_stream()
-            with torch.cuda.stream(self.stream):
-                sym = torch.empty(n, dtype=torch.uint8, device=self.device)
-                sym.copy_(self.bufs[i][:n], non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.stream)
-            current.wait_event(done)
-            sym.record_stream(current)
-        self.events[i] = done
-        return sym
-
-
-_STAGING: dict[tuple[torch.device, int], list[_Staging]] = {}
-_STAGING_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _staging(device: torch.device, block: int):
-    """A set of staging buffers for one stream: kept for the process and
-    reused by later streams of the same device and block size; a stream
-    that runs while another holds the set gets a new one."""
-    key = (device, block)
-    with _STAGING_LOCK:
-        free = _STAGING.setdefault(key, [])
-        st = free.pop() if free else None
-    if st is None:
-        st = _Staging(device, block)
-    try:
-        yield st
-    finally:
-        with _STAGING_LOCK:
-            _STAGING[key].append(st)
-
-
-def _assemble(pieces, block: int, W: int, staging: _Staging):
+def _assemble(pieces, block: int, W: int, staging: Staging):
     """Copy an iterator of symbol arrays into the staging buffers in
     rotation, as (global_start, n, buffer) chunks of at most ``block``
     symbols, consecutive chunks overlapping by W-1 so every window is
@@ -428,7 +360,7 @@ def _assemble(pieces, block: int, W: int, staging: _Staging):
             off += take
             if fill == target:
                 yield gstart, fill, slot
-                nxt = (slot + 1) % STAGING_BUFFERS
+                nxt = (slot + 1) % staging.count
                 head = staging.writable(nxt)
                 head[:W - 1] = buf[target - (W - 1):target]
                 gstart += target - (W - 1)
@@ -469,7 +401,7 @@ def _stream_packed(
         # int32 codes are non-negative; int64 codes are uint64 bit patterns
         kept.append((torch.stack([pos + gstart, code.to(torch.int64)]), ok))
 
-    with _staging(device, block) as staging:
+    with borrow(device, block) as staging:
         chunks = _assemble(pieces, block, W, staging)
         pending = None
         while True:

@@ -1,0 +1,99 @@
+"""Host staging buffers for uploads to a device.
+
+A few host buffers that data is assembled or read into before it goes to
+the device: pinned for a card, so each upload runs asynchronously on a
+side stream while the next buffer fills, and plain on the CPU, where an
+upload is a synchronous copy. A set is kept for the process and reused by
+later users of the same device, block size and buffer count (``borrow``),
+so only the first pays for pinning. Stage I's sketch stream
+(``ops/sketch.py``) and the search's index loader (``index.py``
+``load_device_index``) share this.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import numpy as np
+import torch
+
+# host buffers a set rotates through: one is filled while the uploads of
+# the others run
+STAGING_BUFFERS = 3
+
+
+class Staging:
+    """``count`` host buffers of ``block`` bytes (uint8), pinned for a
+    card, with the side stream that uploads them and the event that ends
+    each one's last upload."""
+
+    def __init__(self, device: torch.device, block: int,
+                 count: int = STAGING_BUFFERS):
+        self.device = device
+        cuda = device.type == "cuda"
+        self.bufs = [torch.empty(block, dtype=torch.uint8, pin_memory=cuda)
+                     for _ in range(count)]
+        self.host = [b.numpy() for b in self.bufs]
+        self.events: list[torch.cuda.Event | None] = [None] * count
+        self.stream = torch.cuda.Stream(device) if cuda else None
+
+    @property
+    def count(self) -> int:
+        return len(self.bufs)
+
+    def writable(self, i: int) -> np.ndarray:
+        """Buffer ``i`` as a numpy array, once its last upload has ended."""
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+            self.events[i] = None
+        return self.host[i]
+
+    def upload(self, i: int, n: int,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+        """The first ``n`` bytes of buffer ``i`` on the device: in ``out``
+        (uint8 [n] on the device, a slice of a larger tensor where the
+        bytes belong) when it is given, else in a new tensor. On a card the
+        copy runs on the side stream, after the work torch's current stream
+        has queued so far (``out`` may reuse memory that work freed), and
+        the current stream, where the kernels launch, waits for it."""
+        src = self.bufs[i][:n]
+        if self.stream is None:
+            return src.clone() if out is None else out.copy_(src)
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream()
+            if out is not None:
+                self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                if out is None:
+                    out = torch.empty(n, dtype=torch.uint8, device=self.device)
+                    out.record_stream(current)
+                out.copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            current.wait_event(done)
+        self.events[i] = done
+        return out
+
+
+_SETS: dict[tuple[torch.device, int, int], list[Staging]] = {}
+_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def borrow(device: torch.device, block: int, count: int = STAGING_BUFFERS):
+    """A set of ``count`` staging buffers of ``block`` bytes for one user:
+    kept for the process and reused by later users of the same device,
+    block size and count; a user that runs while another holds the set
+    gets a new one."""
+    key = (device, block, count)
+    with _LOCK:
+        free = _SETS.setdefault(key, [])
+        st = free.pop() if free else None
+    if st is None:
+        st = Staging(device, block, count)
+    try:
+        yield st
+    finally:
+        with _LOCK:
+            _SETS[key].append(st)

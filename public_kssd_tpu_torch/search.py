@@ -43,7 +43,7 @@ def query_batch_size(n_qry: int, n_ref: int, mem_gb: float) -> int:
 
 def compute_shared_counts(
     qry_dir: str,
-    ref_components: list[index_mod.SparseIndex],
+    ref_components: list,
     n_qry: int,
     device: torch.device | None = None,
     counts_out: np.ndarray | None = None,
@@ -52,6 +52,8 @@ def compute_shared_counts(
 ) -> np.ndarray:
     """Sum shared-code counts across components -> uint32 [n_qry, n_ref].
 
+    ``ref_components`` are ``index.SparseIndex`` objects, or on a device
+    the ``ops.count.DeviceIndex`` objects of ``index.load_device_index``.
     ``device`` runs the counting there (``None``: the host oracle); each
     batch of query rows is summed over the components where it was
     counted and copied once into its rows of the result. ``counts_out``
@@ -160,7 +162,12 @@ def search(
         counts = np.fromfile(skf, dtype="<u4").reshape(n_qry, n_ref)
     else:
         with timer.stage("load_index"):
-            _, comps = index_mod.load_sparse_index(ref_dir)
+            # the mesh's shards and the host oracle are built from host
+            # arrays; one device loads the index straight onto itself
+            if mesh is None and device is not None:
+                _, comps = index_mod.load_device_index(ref_dir, device)
+            else:
+                _, comps = index_mod.load_sparse_index(ref_dir)
         with timer.stage("count"):
             # the count matrix is disk-backed under -m, exactly like
             # the reference's ftruncate+mmap (command_dist.c:742-748)

@@ -55,7 +55,12 @@ def _read(path):
 
 
 @pytest.mark.parametrize("route,device", BACKENDS)
-def test_composite_report_matches_golden(gold, route, device):
+def test_composite_report_matches_golden(gold, route, device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CSR route loaded its index on the host")
+
+    # the CSR route reads its index straight onto the device
+    monkeypatch.setattr(index, "load_sparse_index", refuse)
     for qdir, report in REPORTS:
         got = composite.species_abundance(f"{gold}/{route}", f"{gold}/{qdir}",
                                           device=device)

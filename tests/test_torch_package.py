@@ -98,7 +98,10 @@ DIFFERING = {
     # the device joins run csrc/join.cu (no capacity retry, no
     # DEVICE_JOIN_THRESHOLD auto-selection, device=None is the host
     # oracle); the dense -s search is torch; --mesh runs
-    # parallel/sharded_composite on a torch device mesh
+    # parallel/sharded_composite on a torch device mesh; the CSR route
+    # (species_abundance, _csr_stats_device) reads its index straight
+    # onto the device (index.load_device_index) and takes DeviceIndex
+    # components
     "composite": {
         "DEVICE_JOIN_THRESHOLD", "_batched_join_impl", "_BATCH_JOIN",
         "_batched_join_fn", "_csr_join_impl", "_CSR_JOIN", "_csr_join_fn",

@@ -21,7 +21,7 @@ from public_kssd_tpu.config import SketchParams as JaxParams
 from public_kssd_tpu.ops import pallas_sketch, sketch as jax_sketch
 from public_kssd_tpu_torch import kernels, shufspace
 from public_kssd_tpu_torch.config import SketchParams
-from public_kssd_tpu_torch.ops import sketch
+from public_kssd_tpu_torch.ops import sketch, staging
 from public_kssd_tpu_torch.seqio import BREAK
 
 torch.set_num_threads(1)
@@ -495,14 +495,14 @@ def test_stream_ignores_garbage_in_the_staging_tail(geom):
     p, jp, shuf, jshuf = _edge_geometry(geom)
     block = 1 << 12
     rng = np.random.default_rng(77)
-    with sketch._staging(CPU, block) as st:
+    with staging.borrow(CPU, block) as st:
         for buf in st.host:
             buf[:] = rng.integers(0, 256, buf.size, dtype=np.uint8)
         mine = st
     streams = [_symbols(int(n), seed=int(n), n_breaks=3)
                for n in rng.integers(10, 3 * block, 25)]
     got = sketch.sketch_codes_multi(iter(streams), shuf, p, block=block, device=CPU)
-    with sketch._staging(CPU, block) as st:
+    with staging.borrow(CPU, block) as st:
         assert st is mine  # the run above used the garbage-filled set
     want = jax_sketch.sketch_codes_multi(iter(streams), jshuf, jp, block=block)
     for g, w in zip(got, want, strict=True):
@@ -523,7 +523,7 @@ def test_assemble_chunks_equal_the_jax_iter_chunks(block, sizes):
     rng = np.random.default_rng(len(sizes))
     pieces = [rng.integers(0, 5, n).astype(np.uint8) for n in sizes]
     want = list(jax_sketch._iter_chunks(iter(pieces), block, W))
-    with sketch._staging(CPU, block) as st:
+    with staging.borrow(CPU, block) as st:
         got = [(g, st.host[slot][:n].copy())
                for g, n, slot in sketch._assemble(iter(pieces), block, W, st)]
     assert [g for g, _ in got] == [g for g, _ in want]

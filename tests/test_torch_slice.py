@@ -138,6 +138,15 @@ def test_index_device_sort_parity(slice7):
 
 # ---------------------------------------------------------------- search
 
+def _refuse_host_index(mp):
+    """A search on one device loads its index with index.load_device_index:
+    the host route, which would hold a host copy of it, refuses."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the index was loaded on the host route")
+
+    mp.setattr(index, "load_sparse_index", refuse)
+
+
 @pytest.mark.parametrize(
     "name,kwargs",
     [
@@ -150,7 +159,8 @@ def test_index_device_sort_parity(slice7):
         ("dv_d02", dict(max_dist=0.2)),
     ],
 )
-def test_distance_out_parity(slice7, name, kwargs):
+def test_distance_out_parity(slice7, name, kwargs, monkeypatch):
+    _refuse_host_index(monkeypatch)  # one device: the index goes straight there
     search.search(
         f"{slice7}/torch_ref", f"{slice7}/torch_qry",
         f"{slice7}/torch_{name}", stats_ops.OutputOptions(**kwargs),
@@ -337,8 +347,11 @@ def tutorial(golden7, tmp_path_factory):
                      "-o", f"{d}/ref", "--no-dense-index", *extra]) == 0
         assert main(["dist", "-L", f"{d}/F.shuf", "-o", f"{d}/qry", qdir,
                      *extra]) == 0
-        assert main(["dist", "-r", f"{d}/ref", "-o", f"{d}/out", f"{d}/qry",
-                     *extra]) == 0
+        with pytest.MonkeyPatch.context() as mp:
+            if tag == "torch":
+                _refuse_host_index(mp)
+            assert main(["dist", "-r", f"{d}/ref", "-o", f"{d}/out", f"{d}/qry",
+                         *extra]) == 0
     return root
 
 
