@@ -65,7 +65,16 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               seconds over those files; each reference's FASTA scanned
               in place by native/kssd_scan.c's kssd_fasta_scan and by the
               reference scanner kssd_fasta_to_codes, the same symbols,
-              with one thread's ms a file for each
+              with one thread's ms a file for each; then the three
+              commands as a user runs them, each in its own fresh process
+              through the CLI's entry (python3 -m public_kssd_tpu_torch.cli):
+              the outputs byte-equal to the in-process runs', each
+              process's wall logged; and each again through
+              tools/fresh_start.py's probed child (the same cli.main), its
+              outputs byte-equal too, with where its start went (the
+              interpreter, import torch, the card's start on its thread and
+              the main thread's wait for it, the .shuf check, the first
+              genome's parse, the stages, the exit)
   5. search-heavy main path: the 10,000-ref synthetic DB of phase 3 as a
               stage I directory, indexed and searched by 1,000 queries
               through the CLI; distance.out byte-equal to --cpu-count and
@@ -1043,6 +1052,7 @@ def phase_sketch_heavy(work: str) -> None:
     for k in (kernels.sketch_kernel, kernels.count_kernel):
         if k.launches == 0:
             raise AssertionError(f"{k.name} kernel was not launched by the main path")
+    check_fresh_cli(work, ref_dir, qry_dir, shuf + ".shuf")
     mb = GENOME_BP / 1e6
     log(f"[sketch-heavy] distance.out {n_lines} lines, {size} B, byte-equal to "
         f"--cpu-count; shared codes with own ref: {shared.max(axis=1).tolist()}")
@@ -1053,6 +1063,63 @@ def phase_sketch_heavy(work: str) -> None:
         f"{N_QRY_GENOMES * N_REF_GENOMES / t_search:.1f} pairs/s ({t_search:.3f} s)")
     check_gzip_refs(work, ref_dir, shuf + ".shuf")
     shutil.rmtree(qry_dir)  # the references feed phase 7's reads
+
+
+# the pieces of a fresh process's start that phase 4 logs, in order
+FRESH_PIECES = ("interpreter", "import_torch", "port_imports", "resolve_device",
+                "start.thread", "start.cuinit", "start.context", "start.join",
+                "staging", "library sketch", "library count", "shuf_read", "detect",
+                "first_genome", "stat_read", "stages_sum", "exit")
+
+
+def check_fresh_cli(work: str, ref_dir: str, qry_dir: str, shuf: str) -> None:
+    """Phase 4's three commands as a user runs them: each in its own fresh
+    process through ``python3 -m public_kssd_tpu_torch.cli``, the outputs
+    byte-equal to the same commands run in this process (``work``/ref,
+    qry, out); then each again through ``tools/fresh_start.py``'s probed
+    child, outputs byte-equal too. Logs each process's wall and the
+    probed run's split of its start."""
+    from tools import fresh_start
+
+    def commands(tag: str) -> dict[str, list[str]]:
+        return {
+            "ref": ["dist", "-r", ref_dir, "-L", shuf, "-o", f"{work}/{tag}_ref",
+                    "--no-dense-index"],
+            "qry": ["dist", "-L", shuf, "-o", f"{work}/{tag}_qry", qry_dir],
+            "out": ["dist", "-r", f"{work}/f_ref", "-o", f"{work}/{tag}_out",
+                    "--keepskf", f"{work}/f_qry"],
+        }
+
+    def same_dirs(mine: str, tag: str) -> int:
+        names = sorted(os.listdir(f"{work}/{tag}"))
+        if names != sorted(os.listdir(mine)):
+            raise AssertionError(f"{mine} holds {sorted(os.listdir(mine))}, not {names}")
+        return sum(same_bytes(f"{work}/{tag}/{n}", f"{mine}/{n}") for n in names)
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for tag, argv in commands("f").items():
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "public_kssd_tpu_torch.cli", *argv],
+                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t
+        if r.returncode != 0:
+            raise RuntimeError(f"kssd_torch {' '.join(argv)} exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        size = same_dirs(f"{work}/f_{tag}", tag)
+        probed = commands("p")[tag]
+        run = fresh_start.fresh_runs(probed, 1)[0]
+        same_dirs(f"{work}/p_{tag}", tag)
+        shutil.rmtree(f"{work}/p_{tag}")
+        split = ", ".join(f"{k} {run['pieces'][k]:.3f}" for k in FRESH_PIECES
+                          if run["pieces"].get(k) is not None)
+        at = {k: round(v, 3) for k, v in run["at"].items()
+              if k not in ("stages",) and v is not None}
+        log(f"[fresh] {' '.join(argv[:2])} ... ({tag}): a fresh process (python3 -m "
+            f"public_kssd_tpu_torch.cli) {wall:.3f} s, outputs {size} B byte-equal to "
+            f"the in-process run; probed {run['wall_s']:.3f} s: {split} s; events "
+            f"(s from the spawn) {at}; peak RSS {run['max_rss_mb']:.0f} MiB")
+    for tag in ("ref", "qry", "out"):
+        shutil.rmtree(f"{work}/f_{tag}")
 
 
 def check_gzip_refs(work: str, ref_dir: str, shuf: str) -> None:

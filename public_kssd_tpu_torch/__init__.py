@@ -17,12 +17,17 @@ with the same on-disk artifacts, byte for byte:
 
 Every kernel has a plain PyTorch version in the same module; a wrapper
 uses the plain version for CPU tensors and launches the kernel (or
-raises) for CUDA tensors. Nothing here imports jax.
+raises) for CUDA tensors. Nothing here imports jax. Importing the package
+(and its CLI, ``cli.py``) imports no torch: a fresh ``kssd_torch``
+process starts the card before torch is imported (``start.py``).
 """
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 __version__ = "0.1.0"
 __all__ = ["__version__", "resolve_device"]
@@ -31,7 +36,12 @@ __all__ = ["__version__", "resolve_device"]
 def resolve_device(name: str | torch.device) -> torch.device:
     """``torch.device`` for ``name``, with a CUDA device always carrying its
     index; raises when CUDA is asked for and no card is visible (there is
-    no silent CPU fallback)."""
+    no silent CPU fallback). Before torch has started CUDA in this
+    process, the current card is the first: that index is given without
+    starting CUDA here, so that a thread starting the card
+    (``start.CardStart``) is not waited for."""
+    import torch
+
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -41,5 +51,6 @@ def resolve_device(name: str | torch.device) -> torch.device:
             )
         if dev.index is None:
             # "cuda" and "cuda:0" compare unequal: always name the card
-            dev = torch.device("cuda", torch.cuda.current_device())
+            dev = torch.device("cuda", torch.cuda.current_device()
+                               if torch.cuda.is_initialized() else 0)
     return dev

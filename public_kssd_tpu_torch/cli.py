@@ -31,6 +31,11 @@ visible; ``--device cpu`` runs their plain PyTorch versions. ``--mesh``
 on cuda takes the first visible cards and exits when there are fewer; on
 cpu it repeats the CPU. ``set``, ``reverse``, ``convert`` and ``primer``
 are host work in both packages and take no ``--device``.
+
+A ``dist`` command that runs work on a card starts the card on a thread
+(``start.CardStart``) before torch is imported, and waits for it just
+before its first device call; stage I's parse pool starts as soon as the
+input files are listed, before the ``.shuf`` is read and checked.
 """
 
 from __future__ import annotations
@@ -273,15 +278,17 @@ def _is_mco_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(path, formats.MCO_DSTAT))
 
 
-def _load_params(args, device):
+def _load_params(args, device, ready):
     """(params, shuf) where shuf is a ComputedShuf when the .shuf encodes
     a Feistel space (gather-free kernel), else the permutation table. The
-    check runs on ``device`` when it is a card (shufspace.detect)."""
+    check runs on ``device`` when it is a card (shufspace.detect), after
+    ``ready()`` (the card's start) returns."""
     from public_kssd_tpu_torch import formats, shufspace
     from public_kssd_tpu_torch.config import SketchParams
 
     if os.path.isfile(args.dr):
         params, perm = formats.read_shuf(args.dr, component_sz=args.component_sz)
+        ready()
         computed = shufspace.detect(params, perm, device)
         return params, (computed if computed is not None else perm)
     params = SketchParams.create(
@@ -292,7 +299,24 @@ def _load_params(args, device):
     shuf_path = os.path.join(args.outdir, "default.shuf")
     formats.write_shuf(shuf_path, params, perm)
     print(f"generated {shuf_path} (shuf_id={params.id})")
+    ready()
     return params, shufspace.ComputedShuf(params.id, params.half_subctx_len)
+
+
+def _sketch(args, files: list[str], opts, device, ready) -> None:
+    """Stage I of ``files`` into ``args.outdir``: the parse pool starts
+    first, so that it parses while the ``.shuf`` is read and checked and
+    the card starts (``--byread`` reads its files itself); a failure
+    before the first genome is taken shuts the pool down."""
+    import contextlib
+
+    from public_kssd_tpu_torch import pipeline
+
+    stream = None if opts.byread else pipeline.parsed_streams(files, opts)
+    with stream if stream is not None else contextlib.nullcontext():
+        params, perm = _load_params(args, device, ready)
+        pipeline.run_stage1(files, args.outdir, params, perm, opts,
+                            mem_gb=args.mmry, device=device, stream=stream)
 
 
 def _make_mesh(command: str, spec: str, dp: int, ref: int, device):
@@ -306,18 +330,90 @@ def _make_mesh(command: str, spec: str, dp: int, ref: int, device):
         sys.exit(f"kssd_torch {command} --mesh {spec}: {e}")
 
 
-def _cmd_dist(args) -> int:
-    from public_kssd_tpu_torch import resolve_device
-    from public_kssd_tpu_torch.utils import profile_trace
+def _dist_steps(args) -> tuple[str | None, str | None]:
+    """The steps of a ``dist`` command, read from its arguments and
+    inputs as the reference's dispatch reads them (command_dist.c:53-192):
+    the reference side's ("merge" for --merge-shards, "shard" for
+    --shard, "sketch" for -r raw sequences: stage I and II into -o,
+    "index" for -r a sketch dir: stage II in place, else None) and the
+    query side's ("search" with -r, "index" for one sketch dir, "combine"
+    for several, "sketch" for raw sequences, else None)."""
+    if args.merge_shards:
+        return "merge", None
+    if args.shard:
+        return "shard", None
+    ref = qry = None
+    if args.refpath:
+        if not (_is_co_dir(args.refpath) or _is_mco_dir(args.refpath)):
+            ref = "sketch"
+        elif not _is_mco_dir(args.refpath):
+            ref = "index"
+    if args.remaining or args.fpath:
+        first = args.remaining[0] if args.remaining else ""
+        if args.refpath:
+            qry = "search"
+        elif first and _is_co_dir(first) and not args.pipecmd:
+            qry = "index" if len(args.remaining) == 1 else "combine"
+        else:
+            qry = "sketch"
+    return ref, qry
 
+
+def _card_work(args, steps) -> tuple[str, ...] | None:
+    """What the ``dist`` ``steps`` run on the card (``start.CardStart``'s
+    work names);
+    None when they run nothing there: ``--device cpu``, merging shards,
+    combining sketch dirs, stage II without ``--device-index``, a search
+    with ``--cpu-count`` or ``-f``."""
+    if args.device != "cuda":
+        return None
+    work, card = [], False
+    for step in steps:
+        if step in ("shard", "sketch"):
+            work.append("sketch")
+            card = True
+        elif step == "index":
+            card = card or args.device_index
+        elif step == "search" and not (args.cpu_count or args.skf):
+            # the mesh loads its index on the host
+            work += ["count"] if args.mesh else ["count", "index"]
+            card = True
+    return tuple(work) if card else None
+
+
+def _cmd_dist(args) -> int:
     if args.p < 0:
         sys.exit(f"dist -p: threads must be >= 0 (0 = every usable CPU), got {args.p}")
-    device = resolve_device(args.device)
-    with profile_trace(args.profile or None, device):
-        return _cmd_dist_inner(args, device)
+    steps = _dist_steps(args)
+    work = _card_work(args, steps)
+    card = None
+    if work is not None:
+        from public_kssd_tpu_torch import start
+
+        card = start.CardStart(args.device, work)
+    try:
+        from public_kssd_tpu_torch import resolve_device
+        from public_kssd_tpu_torch.utils import profile_trace
+
+        device = resolve_device(args.device)
+        if args.profile and card is not None:
+            card.join()  # the profiler starts on a started card
+        with profile_trace(args.profile or None, device):
+            return _cmd_dist_inner(args, device, steps,
+                                   card.join if card else _no_wait)
+    finally:
+        if card is not None:
+            card.close()
 
 
-def _cmd_dist_inner(args, device) -> int:
+def _no_wait() -> None:
+    """``ready`` of a command that starts no card."""
+
+
+def _cmd_dist_inner(args, device, steps, ready) -> int:
+    """``dist``'s ``steps`` (``_dist_steps``); ``ready()`` returns once
+    the card has started (``start.CardStart.join``) and is called before
+    each step's first device call."""
     from public_kssd_tpu_torch import index, infiles, pipeline, search
     from public_kssd_tpu_torch.ops import stats as stats_ops
 
@@ -340,12 +436,13 @@ def _cmd_dist_inner(args, device) -> int:
         top_n=args.num_neigb,
     )
 
-    if args.merge_shards:
+    ref_step, qry_step = steps
+    if ref_step == "merge":
         from public_kssd_tpu_torch.parallel import distributed
 
         distributed.merge_shards(args.remaining[0], args.outdir)
         return 0
-    if args.shard:
+    if ref_step == "shard":
         from public_kssd_tpu_torch.parallel import distributed
 
         try:
@@ -358,7 +455,7 @@ def _cmd_dist_inner(args, device) -> int:
             files = infiles.organize_infile_list(args.fpath)
         else:
             files = infiles.organize_infiles(args.remaining, fmt_ck=not args.pipecmd)
-        params, perm = _load_params(args, device)
+        params, perm = _load_params(args, device, ready)
         distributed.sketch_shard(
             files, args.outdir, params, perm, opts, shard_id, n_shards,
             device=device,
@@ -366,36 +463,33 @@ def _cmd_dist_inner(args, device) -> int:
         return 0
 
     # --- reference side (command_dist.c:60-107) ---
-    if args.refpath:
-        if not (_is_co_dir(args.refpath) or _is_mco_dir(args.refpath)):
-            # raw sequences: sketch + index into outdir
-            files = infiles.organize_infiles([args.refpath])
-            if not files:
-                sys.exit(f"no valid input files in {args.refpath}")
-            params, perm = _load_params(args, device)
-            ref_opts = pipeline.SketchOptions(**{
-                **opts.__dict__, "abundance": False  # command_dist.c:94
-            })
-            pipeline.run_stage1(files, args.outdir, params, perm, ref_opts,
-                                mem_gb=args.mmry, device=device)
-            index.run_stage2(args.outdir, args.outdir, args.component_sz,
-                             dense=not args.no_dense_index,
-                             device=index_device)
-            args.refpath = args.outdir
-        elif _is_co_dir(args.refpath) and not _is_mco_dir(args.refpath):
-            index.run_stage2(args.refpath, args.refpath, args.component_sz,
-                             dense=not args.no_dense_index,
-                             device=index_device)
+    if ref_step == "sketch":
+        # raw sequences: sketch + index into outdir
+        files = infiles.organize_infiles([args.refpath])
+        if not files:
+            sys.exit(f"no valid input files in {args.refpath}")
+        ref_opts = pipeline.SketchOptions(**{
+            **opts.__dict__, "abundance": False  # command_dist.c:94
+        })
+        _sketch(args, files, ref_opts, device, ready)
+        index.run_stage2(args.outdir, args.outdir, args.component_sz,
+                         dense=not args.no_dense_index,
+                         device=index_device)
+        args.refpath = args.outdir
+    elif ref_step == "index":
+        ready()
+        index.run_stage2(args.refpath, args.refpath, args.component_sz,
+                         dense=not args.no_dense_index,
+                         device=index_device)
 
     # --- query side (command_dist.c:108-190) ---
-    if args.remaining or args.fpath:
+    if qry_step is not None:
         qry = args.remaining[0] if args.remaining else ""
-        qry_is_co = bool(qry) and _is_co_dir(qry) and not args.pipecmd
 
-        if args.refpath:
+        if qry_step == "search":
             if not _is_mco_dir(args.refpath):
                 sys.exit("need the ref db dir (with index) for -r search mode")
-            if not qry_is_co:
+            if not (qry and _is_co_dir(qry) and not args.pipecmd):
                 sys.exit(
                     "search mode needs a sketched query dir: run "
                     "'kssd_torch dist -L <shuf> -o <qdir> <seqs>' first"
@@ -407,6 +501,7 @@ def _cmd_dist_inner(args, device) -> int:
                 except ValueError:
                     sys.exit(f"dist --mesh: expected DPxREF (e.g. 2x4), got "
                              f"{args.mesh!r}")
+                ready()
                 mesh = _make_mesh("dist", args.mesh, dp, ref, device)
             search.search(
                 args.refpath,
@@ -422,17 +517,19 @@ def _cmd_dist_inner(args, device) -> int:
                 koc=args.koc_out,
                 shard_strategy=args.shard_strategy,
                 threads=args.p,
+                ready=ready,
             )
             return 0
-        if qry_is_co:
-            if len(args.remaining) == 1:
-                index.run_stage2(qry, args.outdir, args.component_sz,
-                                 dense=not args.no_dense_index,
-                                 device=index_device)
-            else:
-                from public_kssd_tpu_torch import combine
+        if qry_step == "index":
+            ready()
+            index.run_stage2(qry, args.outdir, args.component_sz,
+                             dense=not args.no_dense_index,
+                             device=index_device)
+            return 0
+        if qry_step == "combine":
+            from public_kssd_tpu_torch import combine
 
-                combine.combine_queries(args.remaining, args.outdir)
+            combine.combine_queries(args.remaining, args.outdir)
             return 0
         # raw sequences -> sketch into outdir
         if args.fpath:
@@ -441,9 +538,7 @@ def _cmd_dist_inner(args, device) -> int:
             files = infiles.organize_infiles(args.remaining, fmt_ck=not args.pipecmd)
         if not files:
             sys.exit("please specify valid query sequences")
-        params, perm = _load_params(args, device)
-        pipeline.run_stage1(files, args.outdir, params, perm, opts,
-                            mem_gb=args.mmry, device=device)
+        _sketch(args, files, opts, device, ready)
         return 0
     if args.refpath and _is_mco_dir(args.refpath):
         print(

@@ -57,6 +57,8 @@ from public_kssd_tpu_torch.seqio import BREAK
 # canonical k-mer that starts with T ends with A.
 SENTINEL = -1
 _SIGN = -(1 << 63)  # the int64 sign bit
+# symbols a staging buffer of the stream holds: the chunk the kernels take
+STREAM_BLOCK = 1 << 24
 
 
 def _lsr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -437,7 +439,7 @@ def sketch_codes_stream(
     symbols: np.ndarray,
     shuffled_dim,
     params: SketchParams,
-    block: int = 1 << 24,
+    block: int = STREAM_BLOCK,
     *,
     device: torch.device,
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -453,7 +455,7 @@ def sketch_codes_multi(
     streams,
     shuffled_dim,
     params: SketchParams,
-    block: int = 1 << 24,
+    block: int = STREAM_BLOCK,
     *,
     device: torch.device,
 ) -> list[np.ndarray]:
@@ -492,7 +494,7 @@ def sketch_codes_reads(
     reads: list[np.ndarray],
     shuffled_dim,
     params: SketchParams,
-    block: int = 1 << 24,
+    block: int = STREAM_BLOCK,
     *,
     device: torch.device,
 ) -> tuple[np.ndarray, np.ndarray]:

@@ -5,7 +5,8 @@ the device: pinned for a card, so each upload runs asynchronously on a
 side stream while the next buffer fills, and plain on the CPU, where an
 upload is a synchronous copy. A set is kept for the process and reused by
 later users of the same device, block size and buffer count (``borrow``),
-so only the first pays for pinning. Stage I's sketch stream
+so only the first pays for pinning; ``prepare`` makes a set ahead of its
+first user (the card's start, ``start.py``). Stage I's sketch stream
 (``ops/sketch.py``) and the search's index loader (``index.py``
 ``load_device_index``) share this.
 """
@@ -78,6 +79,20 @@ class Staging:
 
 _SETS: dict[tuple[torch.device, int, int], list[Staging]] = {}
 _LOCK = threading.Lock()
+
+
+def prepare(device: torch.device, block: int, count: int = STAGING_BUFFERS) -> None:
+    """Make a set of ``count`` staging buffers of ``block`` bytes for
+    ``device`` and keep it where ``borrow`` looks, so that the first user
+    of that device, block size and count finds it made; nothing when a
+    set is kept there already."""
+    key = (device, block, count)
+    with _LOCK:
+        if _SETS.get(key):
+            return
+    st = Staging(device, block, count)
+    with _LOCK:
+        _SETS.setdefault(key, []).append(st)
 
 
 @contextlib.contextmanager

@@ -12,8 +12,10 @@ reference merge loop does (command_dist.c:314-378).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -82,37 +84,82 @@ def parse_one(path: str, opts: SketchOptions):
     return seqio.read_codes(path, is_fastq, min_qual, opts.pipecmd)
 
 
-def parsed_streams(paths, opts: SketchOptions, workers: int | None = None):
-    """Yield ``(index, path, symbols)`` in order, parsing ahead on a
+class ParsedStreams:
+    """``(index, path, symbols)`` of ``paths`` in order, parsed ahead on a
     thread pool (gzip inflate and the numpy/C scanners release the GIL,
     so decompression+parsing overlaps device work). Prefetch depth is
     bounded at 2x the pool so huge inputs don't all sit in RAM.
+
+    The first ``2 x workers`` parses are submitted when it is made, so
+    that they run while its maker does other work (the CLI reads and
+    checks the ``.shuf`` and the card starts) before the first ``next``.
+    It closes itself once exhausted; ``close`` (or leaving its ``with``
+    block) cancels the parses not started and waits for the running
+    ones, so no thread of the pool outlives it.
 
     The analog of the reference's OpenMP parallel-for over genomes
     (run_stageI, command_dist.c:277-312) — but here host threads only
     feed the parser; the sketch math itself is batched on the device.
     """
-    import collections
-    from concurrent.futures import ThreadPoolExecutor
 
-    workers = workers or min(8, os.cpu_count() or 1)
-    with ThreadPoolExecutor(workers) as ex:
-        pending = collections.deque()
-        it = enumerate(paths)
-        for _ in range(2 * workers):
-            nxt = next(it, None)
-            if nxt is None:
-                break
-            pending.append((nxt[0], nxt[1], ex.submit(parse_one, nxt[1], opts)))
-        while pending:
-            i, path, fut = pending.popleft()
+    def __init__(self, paths, opts: SketchOptions, workers: int | None = None):
+        self.paths = list(paths)
+        self._opts = opts
+        workers = workers or min(8, os.cpu_count() or 1)
+        self._pool = ThreadPoolExecutor(workers, thread_name_prefix="kssd-parse")
+        self._next = enumerate(self.paths)
+        self._pending = collections.deque()
+        try:
+            for _ in range(2 * workers):
+                if not self._submit():
+                    break
+        except BaseException:
+            self.close()
+            raise
+
+    def _submit(self) -> bool:
+        nxt = next(self._next, None)
+        if nxt is None:
+            return False
+        i, path = nxt
+        self._pending.append((i, path, self._pool.submit(parse_one, path, self._opts)))
+        return True
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._pending:
+            self.close()
+            raise StopIteration
+        i, path, fut = self._pending.popleft()
+        try:
             sym = fut.result()
-            nxt = next(it, None)
-            if nxt is not None:
-                pending.append(
-                    (nxt[0], nxt[1], ex.submit(parse_one, nxt[1], opts))
-                )
-            yield i, path, sym
+            self._submit()
+        except BaseException:
+            self.close()
+            raise
+        return i, path, sym
+
+    def close(self) -> None:
+        """Cancel the parses not started and wait for the rest; their
+        results, and what they raised, are dropped."""
+        for _, _, fut in self._pending:
+            fut.cancel()
+        self._pending.clear()
+        self._pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def parsed_streams(paths, opts: SketchOptions, workers: int | None = None
+                   ) -> ParsedStreams:
+    """``ParsedStreams`` of ``paths``: parsing starts now."""
+    return ParsedStreams(paths, opts, workers)
 
 
 def dedup_one(
@@ -178,6 +225,7 @@ def run_stage1(
     mem_gb: float = 0.0,
     *,
     device: torch.device,
+    stream: ParsedStreams | None = None,
 ) -> formats.CoStat:
     """Sketch ``input_files`` into ``out_dir`` (combco.* + cofiles.stat),
     running the window pass on ``device``.
@@ -186,9 +234,16 @@ def run_stage1(
     in registers) or the ``.shuf`` permutation table. ``mem_gb`` (-m)
     bounds the per-group symbol bytes held in host RAM — the analog of
     the reference's p_fit_mem hash-table governor (command_dist.c:83-92,
-    176-185). 0 = default 64 MB groups.
+    176-185). 0 = default 64 MB groups. ``stream`` is the parse of
+    ``input_files`` under ``opts``, started by the caller
+    (``parsed_streams``) so that it runs while the caller prepares;
+    made here when not given, and closed here once its genomes are
+    sketched or the sketch fails (``--byread`` reads its files itself
+    and takes none).
     """
     opts = opts or SketchOptions()
+    if stream is not None and (opts.byread or stream.paths != list(input_files)):
+        raise ValueError("stream: not a parse of input_files, or --byread")
     os.makedirs(out_dir, exist_ok=True)
     shuffled_dim_dev = sketch_ops.as_shuf(shuffled_dim, device)
     cnum = params.component_num
@@ -213,63 +268,64 @@ def run_stage1(
     group_budget = 64 << 20
     if mem_gb > 0:
         group_budget = max(8 << 20, int(mem_gb * 1e9) // 4)
-    stream_iter = parsed_streams(input_files, opts)
-    with timer.stage("parse_wait"):
-        pending_item = next(stream_iter, None)
-    while pending_item is not None:
-        group_meta: list[tuple[int, str]] = []
-        used = 0
+    stream_iter = stream if stream is not None else parsed_streams(input_files, opts)
+    with stream_iter:
+        with timer.stage("parse_wait"):
+            pending_item = next(stream_iter, None)
+        while pending_item is not None:
+            group_meta: list[tuple[int, str]] = []
+            used = 0
 
-        def gen():
-            # lazy feed: the device pipeline consumes streams as they
-            # parse, so gzip/scan threads overlap staging/upload/compute
-            nonlocal pending_item, used
-            while pending_item is not None and (
-                not group_meta or used < group_budget
-            ):
-                gi_, path_, sym_ = pending_item
-                group_meta.append((gi_, path_))
-                # a lazily-streamed big file (piece iterator) fills the
-                # rest of its group by itself
-                used += (
-                    sym_.size if isinstance(sym_, np.ndarray) else group_budget
-                )
-                with timer.stage("parse_wait"):
-                    pending_item = next(stream_iter, None)
-                yield sym_
-
-        with timer.stage("device_sketch"):
-            kept_lists = sketch_ops.sketch_codes_multi(
-                gen(), shuffled_dim_dev, params, device=device
-            )
-        total_bases += used
-        with timer.stage("dedup"):
-            for (gi, path), kept in zip(group_meta, kept_lists):
-                codes, abund = dedup_one(path, kept, params, opts)
-                koc = koc or abund is not None
-                ctx_ct[gi] = codes.size
-                comp_ids = split_components(codes, params)
-                if abund is not None:
-                    comp_mask = (
-                        (codes % np.uint64(cnum)).astype(np.int64)
-                        if cnum > 1
-                        else np.zeros(codes.size, np.int64)
+            def gen():
+                # lazy feed: the device pipeline consumes streams as they
+                # parse, so gzip/scan threads overlap staging/upload/compute
+                nonlocal pending_item, used
+                while pending_item is not None and (
+                    not group_meta or used < group_budget
+                ):
+                    gi_, path_, sym_ = pending_item
+                    group_meta.append((gi_, path_))
+                    # a lazily-streamed big file (piece iterator) fills the
+                    # rest of its group by itself
+                    used += (
+                        sym_.size if isinstance(sym_, np.ndarray) else group_budget
                     )
-                for c in range(cnum):
-                    per_comp_codes[c].append(comp_ids[c])
-                    per_comp_sizes[c].append(comp_ids[c].size)
+                    with timer.stage("parse_wait"):
+                        pending_item = next(stream_iter, None)
+                    yield sym_
+
+            with timer.stage("device_sketch"):
+                kept_lists = sketch_ops.sketch_codes_multi(
+                    gen(), shuffled_dim_dev, params, device=device
+                )
+            total_bases += used
+            with timer.stage("dedup"):
+                for (gi, path), kept in zip(group_meta, kept_lists):
+                    codes, abund = dedup_one(path, kept, params, opts)
+                    koc = koc or abund is not None
+                    ctx_ct[gi] = codes.size
+                    comp_ids = split_components(codes, params)
                     if abund is not None:
-                        per_comp_abund[c].append(abund[comp_mask == c])
-                    if opts.keepcofile:
-                        # the reference's per-genome intermediates
-                        # (<outdir>/<i>.co.<c>, command_dist.c:333-348)
-                        comp_ids[c].astype("<u4").tofile(
-                            os.path.join(out_dir, f"{gi}.co.{c}")
+                        comp_mask = (
+                            (codes % np.uint64(cnum)).astype(np.int64)
+                            if cnum > 1
+                            else np.zeros(codes.size, np.int64)
                         )
+                    for c in range(cnum):
+                        per_comp_codes[c].append(comp_ids[c])
+                        per_comp_sizes[c].append(comp_ids[c].size)
                         if abund is not None:
-                            per_comp_abund[c][-1].astype("<u2").tofile(
-                                os.path.join(out_dir, f"{gi}.co.{c}.a")
+                            per_comp_abund[c].append(abund[comp_mask == c])
+                        if opts.keepcofile:
+                            # the reference's per-genome intermediates
+                            # (<outdir>/<i>.co.<c>, command_dist.c:333-348)
+                            comp_ids[c].astype("<u4").tofile(
+                                os.path.join(out_dir, f"{gi}.co.{c}")
                             )
+                            if abund is not None:
+                                per_comp_abund[c][-1].astype("<u2").tofile(
+                                    os.path.join(out_dir, f"{gi}.co.{c}.a")
+                                )
 
     with timer.stage("write"):
         for c in range(cnum):

@@ -106,6 +106,7 @@ def search(
     koc: bool = False,
     shard_strategy: str = "genome",
     threads: int = 0,
+    ready=None,
 ) -> str:
     """Full search -> ``<out_dir>/distance.out``; returns its path.
 
@@ -122,7 +123,10 @@ def search(
     counting runs DB-sharded over its devices by ``shard_strategy``
     ('genome' or 'code'), components folded into one key space.
     ``threads`` (-p) format ``distance.out``; 0 = every CPU this process
-    may use. The output does not depend on it.
+    may use. The output does not depend on it. ``ready`` (a function of
+    no arguments) is called after the stat files are read and before the
+    first device call: the CLI waits there for the card's start
+    (``start.CardStart.join``).
     """
     if mesh is not None:
         from public_kssd_tpu_torch import parallel
@@ -158,6 +162,8 @@ def search(
             "in the shared-k matrix; rerun the full search with --koc-out"
         )
     koc_counts = np.empty((n_qry, n_ref), dtype=np.uint64) if koc else None
+    if ready is not None:
+        ready()
     if shared_kmer_path:
         counts = np.fromfile(skf, dtype="<u4").reshape(n_qry, n_ref)
     else:

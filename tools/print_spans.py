@@ -54,9 +54,15 @@ costs with no formatting at all; ``write_floor_par_s`` the same bytes
 written by ``dist -p`` threads, each ``pwrite``-ing whole blocks at
 their known offsets.
 
-``--fresh N`` runs N calls in fresh processes without the profiler:
-each process's wall, the stages it logged and its peak resident host
-memory (``max_rss_mb``, /proc/<pid>/statm sampled every 5 ms).
+``--fresh N`` runs N calls in fresh processes without the profiler,
+through ``tools/fresh_start.py``: each process's wall, where its start
+went (the interpreter, ``import torch``, the port's imports, the
+arguments, ``resolve_device``, the context, the staging sets, each
+kernel library's load and first launch, the stages it logged, the exit),
+its peak resident host memory (``max_rss_mb``, /proc/<pid>/statm sampled
+every 5 ms) split into anonymous and file-backed memory, and the median
+of each piece over the N runs. The printed line leaves out each run's
+spans; ``--out`` keeps them.
 
 ``--load`` loads the reference index onto the device in fresh
 processes (the card touched first, so no load pays for CUDA's start),
@@ -97,7 +103,6 @@ import re
 import shutil
 import subprocess
 import sys
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -107,7 +112,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from bench_torch import data  # noqa: E402
 from bench_torch.run import SEARCH, SEED, device_names, search_dirs  # noqa: E402
-from stage1_spans import clocked_calls, profiled_call  # noqa: E402
+import fresh_start  # noqa: E402
+from stage1_spans import brief, clocked_calls, profiled_call  # noqa: E402
 
 BLOCK = 16 << 20
 
@@ -206,36 +212,14 @@ def resident_mb(pid: int | str = "self") -> float | None:
 
 
 def fresh_calls(argv: list[str], n: int, timeout: float = 900) -> dict:
-    """n calls of ``argv`` in fresh processes, unprofiled: each process's
-    wall (imports and the CUDA start included), the stages its search
-    logged and its peak resident memory, sampled every 5 ms while it runs
-    (a child's ru_maxrss would also count the memory of this process that
-    the fork copied before the exec)."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    walls, stages, rss = [], [], []
-    for _ in range(n):
-        with tempfile.TemporaryFile("w+") as err:
-            t = time.perf_counter()
-            p = subprocess.Popen(
-                [sys.executable, "-m", "public_kssd_tpu_torch.cli", *argv],
-                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
-            peak = 0.0
-            while p.poll() is None:
-                peak = max(peak, resident_mb(p.pid) or 0.0)
-                if time.perf_counter() - t > timeout:
-                    p.kill()
-                time.sleep(0.005)
-            walls.append(time.perf_counter() - t)
-            err.seek(0)
-            log = err.read()
-        if p.returncode != 0:
-            raise RuntimeError(f"kssd_torch exited {p.returncode}: {log[-2000:]}")
-        rss.append(peak)
-        line = [x for x in log.splitlines() if "search:" in x][-1]
-        stages.append({k: float(v) for k, v in
-                       re.findall(r"(\w+): ([0-9.]+)s", line[line.rindex("["):])})
-        shutil.rmtree(argv[argv.index("-o") + 1])
-    return {"walls_s": walls, "stages_s": stages, "max_rss_mb": rss}
+    """n calls of ``argv`` in fresh processes, unprofiled, through
+    ``fresh_start.fresh_runs``: each process's wall (imports and the CUDA
+    start included), where its start went (``pieces``), the stages its
+    search logged and its peak resident memory, split into anonymous and
+    file-backed memory; the medians over the runs."""
+    runs = fresh_start.fresh_runs(argv, n, timeout, clean=argv[argv.index("-o") + 1])
+    return {**fresh_start.summary(runs),
+            "stages_s": [r["at"]["stages"] for r in runs], "runs": runs}
 
 
 def load_child(sref: str, route: str, threads: int, reps: int, device: str) -> dict:
@@ -410,7 +394,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.fresh:
         lines.append({"cell": SEARCH, **shape, "fresh_calls": args.fresh,
                       "index_bytes": n_bytes, **fresh_calls(dist("f"), args.fresh)})
-        print(json.dumps(lines[-1]), flush=True)
+        print(json.dumps(brief(lines[-1])), flush=True)
     if args.load:
         lines.append({"cell": SEARCH, **shape,
                       "load": load_times(sref, max(args.clock, 1), device.type)})

@@ -15,7 +15,10 @@ Runs the benchmark's stage I call (``bench_torch``'s cell
 ``--clock N`` also times N unprofiled calls in this process with the
 spans read on the host clock (``record_function`` replaced by a
 ``perf_counter`` stack while they run: no profiler, so no per-op
-overhead), with the mean of each logged stage; the parse pool's own
+overhead), with the mean of each logged stage, the mean wall outside
+them (``outside_s``) and the mean seconds of the ``.shuf`` read and
+check (``cli._load_params``, which overlaps the parse pool since the
+pool starts first) and of stage II (``timed_s``); the parse pool's own
 floor: the seconds ``pipeline.parsed_streams`` takes to parse every
 genome with nothing consuming its output but the loop; and the stream's
 own cost: the genomes parsed first, then sketched group by group
@@ -37,9 +40,21 @@ genomes by scanner (``scan_ms_by_route``: the reference
 of the inflated bytes; ``scan_ms_after_inflate``: the reference and
 ``kssd_fasta_scan`` right after each inflater route).
 
+``--fresh N`` runs the call in N fresh processes without the profiler,
+through ``tools/fresh_start.py``: each process's wall and where its
+start went (the interpreter, ``import torch``, the port's imports, the
+arguments and the file listing, ``resolve_device``, the context, the
+staging set, the sketch library's load and first launch, the ``.shuf``
+read and check, the first genome's parse and when it ended against when
+the check did, the stages it logged, the exit), its peak resident memory
+split into anonymous and file-backed memory, and the median of each
+piece. The printed line leaves out each run's spans; ``--out`` keeps
+them.
+
 Run from the checkout's root, on a card::
 
-    python3 tools/stage1_spans.py [--calls 2] [--clock 5] [--parse-split] [--seed N] [--out FILE]
+    python3 tools/stage1_spans.py [--calls 2] [--clock 5] [--parse-split]
+                                  [--fresh N] [--seed N] [--out FILE]
 
 One JSON line per profiled call (and one for the clocked calls) on
 stdout, the last line a summary with the device name; ``--out`` also
@@ -59,6 +74,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from bench_torch import data  # noqa: E402
 from bench_torch.run import SEED, STAGE1, device_names, genomes, run_cli  # noqa: E402
@@ -152,15 +168,35 @@ class HostClock:
                 self._stack[-1][2] += dt
 
 
-def clocked_calls(argv: list[str], n: int) -> dict:
+def clocked_calls(argv: list[str], n: int, timed: dict | None = None) -> dict:
     """n in-process calls of ``argv`` with the spans on the host clock:
     the mean self seconds of each span a call, the mean of each stage
-    the calls logged, and each call's wall."""
+    the calls logged, and each call's wall; ``outside_s``, the mean wall
+    less the mean logged stages; and, for each name of ``timed`` (name
+    -> (module, function name)), the mean seconds a call spent in that
+    function (``timed_s``), to say where the time outside the stages
+    goes."""
+    import functools
+
     import torch
 
     clock = HostClock()
     walls, stages = [], {}
+    spent = {name: 0.0 for name in timed or {}}
     real = torch.profiler.record_function
+    originals = []
+    for name, (module, attr) in (timed or {}).items():
+        fn = getattr(module, attr)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                spent[_name] += time.perf_counter() - t
+
+        originals.append((module, attr, fn))
+        setattr(module, attr, functools.wraps(fn)(wrapped))
     torch.profiler.record_function = clock
     try:
         for _ in range(n):
@@ -171,9 +207,15 @@ def clocked_calls(argv: list[str], n: int) -> dict:
             shutil.rmtree(argv[argv.index("-o") + 1])
     finally:
         torch.profiler.record_function = real
-    return {"walls_s": walls, "stages_s": stages,
-            "self_s": {k: v / n for k, v in sorted(clock.self_s.items(),
-                                                   key=lambda kv: -kv[1])}}
+        for module, attr, fn in originals:
+            setattr(module, attr, fn)
+    out = {"walls_s": walls, "stages_s": stages,
+           "self_s": {k: v / n for k, v in sorted(clock.self_s.items(),
+                                                  key=lambda kv: -kv[1])}}
+    if timed:
+        out["outside_s"] = sum(walls) / n - sum(stages.values())
+        out["timed_s"] = {k: v / n for k, v in spent.items()}
+    return out
 
 
 def parse_floor(refs: str, n: int) -> list[float]:
@@ -459,9 +501,18 @@ def profiled_call(argv: list[str], trace_dir: str, timeout: float) -> dict:
     return {"fresh_process_s": wall, "logged": logged, **breakdown(events)}
 
 
+def brief(line: dict) -> dict:
+    """A result line without its runs' spans (``--out`` keeps them)."""
+    if "runs" not in line:
+        return line
+    return {**line, "runs": [{k: v for k, v in r.items() if k != "spans"}
+                             for r in line["runs"]]}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=2)
+    ap.add_argument("--fresh", type=int, default=0)
     ap.add_argument("--clock", type=int, default=0)
     ap.add_argument("--parse-split", action="store_true")
     ap.add_argument("--seed", type=int, default=SEED)
@@ -498,11 +549,23 @@ def main(argv: list[str] | None = None) -> int:
         lines.append({"cell": STAGE1, "call": i, **res})
         print(json.dumps(lines[-1]), flush=True)
     if args.clock:
-        res = clocked_calls(dist(os.path.join(args.work, "c")), args.clock)
+        from public_kssd_tpu_torch import cli, index
+
+        res = clocked_calls(dist(os.path.join(args.work, "c")), args.clock,
+                            {".shuf read and check": (cli, "_load_params"),
+                             "stage II": (index, "run_stage2")})
         res["parse_pool_s"] = parse_floor(refs, args.clock)
         res["stream_alone"] = stream_alone(refs, shuf + ".shuf", device, args.clock)
         lines.append({"cell": STAGE1, "clocked_calls": args.clock, **res})
         print(json.dumps(lines[-1]), flush=True)
+    if args.fresh:
+        import fresh_start
+
+        out = os.path.join(args.work, "f")
+        runs = fresh_start.fresh_runs(dist(out), args.fresh, clean=out)
+        lines.append({"cell": STAGE1, "fresh_calls": args.fresh,
+                      **fresh_start.summary(runs), "runs": runs})
+        print(json.dumps(brief(lines[-1])), flush=True)
     if args.parse_split:
         lines.append({"cell": STAGE1, "parse_split": parse_split(refs)})
         print(json.dumps(lines[-1]), flush=True)
