@@ -70,11 +70,14 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               through the CLI's entry (python3 -m public_kssd_tpu_torch.cli):
               the outputs byte-equal to the in-process runs', each
               process's wall logged; and each again through
-              tools/fresh_start.py's probed child (the same cli.main), its
-              outputs byte-equal too, with where its start went (the
-              interpreter, import torch, the card's start on its thread and
-              the main thread's wait for it, the .shuf check, the first
-              genome's parse, the stages, the exit)
+              tools/fresh_start.py's probed child (the same cli.main and
+              the entry's close-out), its outputs byte-equal too, with
+              where its start went (the interpreter, import torch, the
+              card's start on its thread and the main thread's wait for
+              it, the .shuf check, the first genome's parse, the stages)
+              and its exit's steps; then a failing search through the
+              entry, with the exit code and stderr of main's code handed
+              to the interpreter's exit
   5. search-heavy main path: the 10,000-ref synthetic DB of phase 3 as a
               stage I directory, indexed and searched by 1,000 queries
               through the CLI; distance.out byte-equal to --cpu-count and
@@ -170,6 +173,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -1069,7 +1073,26 @@ def phase_sketch_heavy(work: str) -> None:
 FRESH_PIECES = ("interpreter", "import_torch", "port_imports", "resolve_device",
                 "start.thread", "start.cuinit", "start.context", "start.join",
                 "staging", "library sketch", "library count", "shuf_read", "detect",
-                "first_genome", "stat_read", "stages_sum", "exit")
+                "first_genome", "stat_read", "stages_sum", "exit", "exit.return",
+                "exit.close_out", "exit.threads", "exit.atexit", "exit.finalize",
+                "exit.teardown")
+# a command's code and stderr in the two routes that must end alike: the
+# CLI's entry, and main's code handed to the interpreter's exit
+ENTRY = ["-m", "public_kssd_tpu_torch.cli"]
+OLD_ROUTE = ["-c", "import sys; from public_kssd_tpu_torch.cli import main; "
+             "sys.exit(main(sys.argv[1:]))"]
+
+
+def stderr_key(text: str) -> list[str]:
+    """``text`` (a process's stderr) less the traceback's frames above
+    ``main``, where the entry's route and the old route differ."""
+    lines = text.splitlines()
+    if "Traceback (most recent call last):" not in lines:
+        return lines
+    head = lines.index("Traceback (most recent call last):")
+    frames = next((i for i in range(head, len(lines)) if lines[i].endswith(", in main")),
+                  head + 1)
+    return lines[:head + 1] + lines[frames:]
 
 
 def check_fresh_cli(work: str, ref_dir: str, qry_dir: str, shuf: str) -> None:
@@ -1078,7 +1101,10 @@ def check_fresh_cli(work: str, ref_dir: str, qry_dir: str, shuf: str) -> None:
     byte-equal to the same commands run in this process (``work``/ref,
     qry, out); then each again through ``tools/fresh_start.py``'s probed
     child, outputs byte-equal too. Logs each process's wall and the
-    probed run's split of its start."""
+    probed run's split of its start and its exit. Then a failing search
+    (the query sketches under another ``.shuf``'s id: ``ShufIdMismatch``)
+    through the entry and through the old route (``main``'s code to the
+    interpreter's exit): the same non-zero code and stderr."""
     from tools import fresh_start
 
     def commands(tag: str) -> dict[str, list[str]]:
@@ -1099,8 +1125,8 @@ def check_fresh_cli(work: str, ref_dir: str, qry_dir: str, shuf: str) -> None:
     env = dict(os.environ, PYTHONPATH=ROOT)
     for tag, argv in commands("f").items():
         t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "public_kssd_tpu_torch.cli", *argv],
-                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        r = subprocess.run([sys.executable, *ENTRY, *argv], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
         wall = time.perf_counter() - t
         if r.returncode != 0:
             raise RuntimeError(f"kssd_torch {' '.join(argv)} exited {r.returncode}: "
@@ -1116,8 +1142,29 @@ def check_fresh_cli(work: str, ref_dir: str, qry_dir: str, shuf: str) -> None:
               if k not in ("stages",) and v is not None}
         log(f"[fresh] {' '.join(argv[:2])} ... ({tag}): a fresh process (python3 -m "
             f"public_kssd_tpu_torch.cli) {wall:.3f} s, outputs {size} B byte-equal to "
-            f"the in-process run; probed {run['wall_s']:.3f} s: {split} s; events "
+            f"the in-process run; probed {run['wall_s']:.3f} s (ended by "
+            f"{run['exit']['end']}): {split} s; events "
             f"(s from the spawn) {at}; peak RSS {run['max_rss_mb']:.0f} MiB")
+    # the query sketches under another .shuf's id (no sketch launched)
+    from public_kssd_tpu_torch import formats
+
+    shutil.copytree(f"{work}/qry", f"{work}/x_qry")
+    stat = formats.read_co_stat(f"{work}/x_qry")
+    formats.write_co_stat(f"{work}/x_qry", dataclasses.replace(
+        stat, params_id=stat.params_id ^ 1))
+    bad = ["dist", "-r", f"{work}/f_ref", "-o", f"{work}/x_out", f"{work}/x_qry"]
+    ends = []
+    for route in (ENTRY, OLD_ROUTE):
+        r = subprocess.run([sys.executable, *route, *bad], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+        ends.append((r.returncode, stderr_key(r.stderr)))
+    if ends[0] != ends[1] or ends[0][0] == 0 or "ShufIdMismatch" not in ends[0][1][-1]:
+        raise AssertionError(f"a failing search ended {ends[0]} through the entry, "
+                             f"{ends[1]} through main")
+    log(f"[fresh] a failing search (a query of another .shuf) through the entry: "
+        f"exit code {ends[0][0]}, '{ends[0][1][-1]}', as through main's code")
+    shutil.rmtree(f"{work}/x_qry")
+    shutil.rmtree(f"{work}/x_out", ignore_errors=True)
     for tag in ("ref", "qry", "out"):
         shutil.rmtree(f"{work}/f_{tag}")
 

@@ -36,6 +36,15 @@ A ``dist`` command that runs work on a card starts the card on a thread
 (``start.CardStart``) before torch is imported, and waits for it just
 before its first device call; stage I's parse pool starts as soon as the
 input files are listed, before the ``.shuf`` is read and checked.
+
+The ``kssd_torch`` command (``entry``) ends its process as soon as a
+command has returned its exit code and its outputs are closed
+(``close_out``): it skips the interpreter's exit (joining threads, the
+``atexit`` handlers, module teardown and the static destructors of torch
+and of the kernel libraries). Any other end (``sys.exit`` with a message,
+an exception, a failed flush of stdout, a live torch.distributed group)
+goes through the interpreter's exit as before. ``main`` returns its code
+to in-process callers.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import threading
 
 _DEVICE_HELP = (
     "torch device of the kernels: cuda runs the hand-written kernels, "
@@ -549,5 +559,49 @@ def _cmd_dist_inner(args, device, steps, ready) -> int:
     return 0
 
 
+def close_out(rc: int) -> int:
+    """End this process with exit code ``rc``, which a command has just
+    returned: shut logging down, flush stdout and stderr, then
+    ``os._exit(rc)``. Every output file is closed by then (the stages
+    write through ``with``; stage I's parse pool and the search's print
+    pool are shut down inside ``main``).
+
+    Returns ``rc`` instead, and leaves the end to the interpreter's exit
+    as before, where that exit does more than free the process:
+    * ``rc`` is not an int (``sys.exit`` prints it);
+    * a torch.distributed group is up (its teardown is an ``atexit``
+      handler, ``parallel/distributed.py``);
+    * a thread that is not a daemon is still alive, which the
+      interpreter would wait for; the index loader's readers
+      (``index._readers``, kept for the process) do not count: they are
+      idle once a load has returned, and they only read;
+    * the flush fails (stdout into a closed pipe: the interpreter
+      reports it and ends with code 120)."""
+    if not isinstance(rc, int):
+        return rc
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return rc
+    me = threading.current_thread()
+    if any(t is not me and not t.daemon and not t.name.startswith("kssd-index-read")
+           for t in threading.enumerate()):
+        return rc
+    if "logging" in sys.modules:
+        sys.modules["logging"].shutdown()
+    try:
+        for stream in (sys.stdout, sys.stderr):
+            if stream is not None:  # None where the descriptor was closed
+                stream.flush()
+    except (OSError, ValueError):
+        return rc
+    os._exit(rc)
+
+
+def entry(argv: list[str] | None = None) -> int:
+    """The ``kssd_torch`` command: ``main``, then ``close_out`` of the
+    code it returns. Whatever ``main`` raises passes through unchanged."""
+    return close_out(main(argv))
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(entry())

@@ -30,9 +30,22 @@ process of the host) and do nothing else:
   cost shows on its own: the same work the tree does at its first device
   call, moved to where it can be timed.
 
+Once ``main`` has returned, the child ends one of three ways
+(``ENDS``, ``--end``): "close_out" calls the CLI's ``close_out``, as
+its ``entry`` does for a user (the default on a tree that has one);
+"interpreter" returns to the interpreter's exit, as the CLI did before;
+"sync_exit" synchronizes the card and calls ``os._exit``. The exit's
+steps are written as they end (``_probe_exit``): the close-out up to its
+``os._exit``, ``threading._shutdown`` and the threads it joins, each
+``atexit`` handler by name, the rest of the interpreter's finalization
+and, from the last Python-visible point to the parent's ``waitpid``,
+the libraries' static destructors and the kernel's teardown
+(``exit_split``).
+
 Each run gives its wall (spawn to exit, on this process's clock), the
 pieces above in seconds (``pieces``: the first span of each; ``exit``:
-from ``main``'s return to the process's end), the times a few events
+from ``main``'s return to the process's end; ``exit.*``: its steps),
+how it ended (``exit``: the way and the joined threads), the times a few events
 came, counted from the spawn (``at``), the stage seconds the command
 logged, every span (``spans``: name, thread, start and end from the
 spawn), its peak resident memory (``max_rss_mb``, /proc/<pid>/statm
@@ -60,14 +73,23 @@ helps.
 
 ``--compare N --parent DIR -- <kssd_torch arguments>`` runs the command
 in fresh processes in turns (``compare``): the parent checkout DIR's
-port, this one's, and this one's with the card's start skipping its
-cuInit step; N rounds after an untimed one, with each way's median wall
-less the parent's over the rounds.
+port, this one's, and this one's ending through the interpreter's exit;
+N rounds after an untimed one, with each way's median wall less the
+parent's over the rounds. ``--exit N -- <kssd_torch arguments>`` runs
+this checkout's port ending each of the three ways in turns
+(``exit_ways``). ``--import-split`` times ``import torch`` by module
+(``-X importtime``), reads the loader's statistics and checks torch's
+``__pycache__`` (``import_split``). ``--reread FILE`` summarizes again
+the runs in turns that an ``--out`` FILE holds (``summary``,
+``minus_first``).
 
 Run from the checkout's root, on a card::
 
     python3 tools/fresh_start.py --overlap 5 [--out FILE]
     python3 tools/fresh_start.py --compare 10 --parent DIR [--clean PATH] -- dist ...
+    python3 tools/fresh_start.py --exit 10 [--clean PATH] -- dist ...
+    python3 tools/fresh_start.py --import-split
+    python3 tools/fresh_start.py --reread FILE
 
 ``tools/print_spans.py --fresh N`` and ``tools/stage1_spans.py --fresh
 N`` run their cells' commands through ``fresh_runs``.
@@ -205,8 +227,6 @@ def _patch(spans: Spans, name: str, module, state: dict) -> None:
 
         module.log.addHandler(Keep())
     elif name == f"{PORT}.start":
-        if state.get("skip_cuinit"):
-            module._fresh = lambda: False
         w(module, "_cuinit", "start.cuinit")
         w(module, "_context", "start.context")
         w(module.CardStart, "_run", "start.thread")
@@ -269,16 +289,121 @@ def rss_by_mapping(pid: str = "self", top: int = 12) -> dict:
             "largest": dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])}
 
 
-def child(out: str, argv: list[str], skip_cuinit: bool = False) -> int:
+class _Marks:
+    """Exit steps written to a file as they end (``name``, start, end and
+    an extra field, tab-separated), with ``os.write``: the process may
+    end with ``os._exit`` or after its modules are torn down, past any
+    point where a buffered write or json would still run."""
+
+    def __init__(self, path: str):
+        self.fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+        self.write, self.clock = os.write, time.monotonic
+
+    def add(self, name: str, t0: float, t1: float | None = None, extra: str = "") -> None:
+        t1 = self.clock() if t1 is None else t1
+        self.write(self.fd, ("%s\t%.9f\t%.9f\t%s\n" % (name, t0, t1, extra)).encode())
+
+    def point(self, name: str, extra: str = "") -> None:
+        t = self.clock()
+        self.add(name, t, t, extra)
+
+
+class _LastMark:
+    """Kept as an attribute of ``sys``, which the interpreter clears
+    after every other module: its ``__del__`` is the last Python-visible
+    point of the interpreter's exit."""
+
+    def __init__(self, marks: _Marks):
+        self.marks = marks
+
+    def __del__(self):
+        self.marks.point("finalized")
+
+
+def _probe_exit(marks: _Marks) -> None:
+    """Time each step of this process's exit into ``marks``:
+    ``threading._shutdown`` (``threads``, with the threads it joins),
+    each ``atexit`` handler registered from now on (``atexit``, with its
+    qualified name), the end of the handlers (``atexit_end``, a handler
+    registered first, so that it runs after them), the interpreter's
+    last Python-visible point (``finalized``) and a call of
+    ``os._exit``."""
+    import atexit
+
+    marks.point("early_atexit", str(atexit._ncallbacks()))  # these run after atexit_end
+    atexit.register(lambda: marks.point("atexit_end"))  # runs after the later ones
+    real_register, real_unregister = atexit.register, atexit.unregister
+    wrapped: dict = {}
+
+    def register(fn, *a, **k):
+        name = f"{getattr(fn, '__module__', None)}.{getattr(fn, '__qualname__', fn)}"
+
+        def run():
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **k)
+            finally:
+                marks.add("atexit", t0, extra=name)
+
+        wrapped.setdefault(fn, []).append(run)
+        real_register(run)
+        return fn
+
+    def unregister(fn):
+        for run in wrapped.pop(fn, []):
+            real_unregister(run)
+        real_unregister(fn)
+
+    atexit.register, atexit.unregister = register, unregister
+    real_shutdown = threading._shutdown
+
+    def shutdown():
+        me = threading.current_thread()
+        names = [th.name for th in threading.enumerate()
+                 if th is not me and not th.daemon and th.is_alive()]
+        t0 = time.monotonic()
+        try:
+            return real_shutdown()
+        finally:
+            marks.add("threads", t0, extra=",".join(names))
+
+    threading._shutdown = shutdown
+    real_exit = os._exit
+
+    def _exit(code):
+        marks.point("os._exit")
+        real_exit(code)
+
+    os._exit = _exit
+    sys._kssd_last_mark = _LastMark(marks)
+
+
+# the ways a probed process ends once ``main`` has returned
+ENDS = ("interpreter", "close_out", "sync_exit")
+
+
+def child(out: str, argv: list[str], end: str | None = None) -> int:
     """Run ``kssd_torch <argv>`` in this fresh process, probed; write the
-    spans to ``out``."""
+    spans to ``out`` and the exit's steps to ``out``.exit. Then end as
+    ``end`` says: "interpreter" returns the code to the interpreter's
+    exit (``sys.exit(main())``, the CLI's end before its ``entry``);
+    "close_out" calls the CLI's ``close_out``, the end its ``entry``
+    gives a user (the default on a tree that has it, else
+    "interpreter"); "sync_exit" waits for the card
+    (``torch.cuda.synchronize()``, where CUDA was started) and calls
+    ``os._exit`` at once."""
     spans = Spans()
+    marks = _Marks(out + ".exit")
+    _probe_exit(marks)
     spec = importlib.util.find_spec(PORT)
     # a tree that brings the card up itself has start.py
-    state = {"logged": [], "skip_cuinit": skip_cuinit, "context_probe": not os.path.isfile(
+    state = {"logged": [], "context_probe": not os.path.isfile(
         os.path.join(os.path.dirname(spec.origin), "start.py"))}
     sys.meta_path.insert(0, _ImportTimer(spans, state))
     cli = importlib.import_module(f"{PORT}.cli")
+    end = end or ("close_out" if hasattr(cli, "close_out") else "interpreter")
+    if end == "close_out" and not hasattr(cli, "close_out"):
+        raise SystemExit(f"{PORT}.cli has no close_out")
     rc = 1
     try:
         rc = cli.main(argv)
@@ -289,9 +414,17 @@ def child(out: str, argv: list[str], skip_cuinit: bool = False) -> int:
         mapping = rss_by_mapping()
         with open(out, "w") as f:
             json.dump({"t_enter": T_ENTER, "t_main_end": t_end,
-                       "probe_s": time.monotonic() - t_map, "rc": rc,
+                       "probe_s": time.monotonic() - t_map, "rc": rc, "end": end,
                        "spans": spans.spans, "logged": state["logged"],
                        "rss_by_mapping": mapping}, f)
+    if end == "close_out":
+        marks.point("close_out")
+        return cli.close_out(rc)
+    if end == "sync_exit":
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        os._exit(rc)
     return rc
 
 
@@ -355,6 +488,46 @@ def _exclusive(spans: list[list], prefix: str) -> float:
     return total
 
 
+def exit_split(res: dict, t_exit: float) -> tuple[dict, list[str]]:
+    """The exit's steps, in seconds, from the child's marks (``_probe_exit``):
+    ``exit.return`` (from the probe's write to the first step: the return
+    through the interpreter, or ``sync_exit``'s synchronize),
+    ``exit.close_out`` (the CLI's close-out up to its ``os._exit``),
+    ``exit.threads`` (``threading._shutdown``), ``exit.atexit`` (the
+    handlers; ``exit.atexit <name>`` each), ``exit.finalize`` (from the
+    handlers' end to the last Python-visible point: module teardown, the
+    garbage collection, and the handlers registered before the probe)
+    and ``exit.teardown`` (from the last Python-visible point to the
+    parent's ``waitpid``: the static destructors of the libraries and
+    the kernel's teardown of the process); and the names of the threads
+    ``threading._shutdown`` joined."""
+    marks = [(m[0], float(m[1]), float(m[2]), m[3]) for m in res.get("exit_marks", [])]
+    p: dict[str, float] = {}
+    joined: list[str] = []
+    start = res["t_main_end"] + res["probe_s"]
+    first = min((m[1] for m in marks if m[0] != "early_atexit"), default=None)
+    if first is not None:
+        p["exit.return"] = first - start
+    by = {m[0]: m for m in marks}
+    if "close_out" in by and "os._exit" in by:
+        p["exit.close_out"] = by["os._exit"][1] - by["close_out"][1]
+    if "threads" in by:
+        p["exit.threads"] = by["threads"][2] - by["threads"][1]
+        joined = [n for n in by["threads"][3].split(",") if n]
+        if "atexit_end" in by:
+            p["exit.atexit"] = by["atexit_end"][2] - by["threads"][2]
+    for name, a, b, extra in marks:
+        if name == "atexit":
+            key = f"exit.atexit {extra}"
+            p[key] = p.get(key, 0.0) + (b - a)
+    if "atexit_end" in by and "finalized" in by:
+        p["exit.finalize"] = by["finalized"][1] - by["atexit_end"][2]
+    last = by.get("os._exit") or by.get("finalized")
+    if last is not None:
+        p["exit.teardown"] = t_exit - last[1]
+    return p, joined
+
+
 def pieces(res: dict, t_spawn: float, t_exit: float) -> tuple[dict, dict]:
     """The run's pieces (seconds) and event times (seconds from the
     spawn)."""
@@ -415,15 +588,15 @@ def pieces(res: dict, t_spawn: float, t_exit: float) -> tuple[dict, dict]:
 
 def fresh_runs(argv: list[str], n: int, timeout: float = 900,
                clean: str | None = None, root: str = ROOT,
-               skip_cuinit: bool = False) -> list[dict]:
+               end: str | None = None) -> list[dict]:
     """``kssd_torch <argv>`` in ``n`` fresh processes through the probed
     child, with the port of the checkout ``root``: each one's wall,
-    pieces, events, spans and memory. ``clean`` (a path) is removed after
-    each run. ``skip_cuinit`` has the card's start skip its cuInit step
-    (``start._fresh`` made false), so that torch starts CUDA on the start
-    thread after its import, as without that step."""
+    pieces (the exit's steps among them, ``exit_split``), events, spans,
+    memory, and how it ended (``exit``: the way, ``child``'s ``end``, and
+    the threads the interpreter's exit joined). ``clean`` (a path) is
+    removed after each run."""
     env = dict(os.environ, PYTHONPATH=root)
-    flags = ["--skip-cuinit"] if skip_cuinit else []
+    flags = ["--end", end] if end else []
     runs = []
     for _ in range(n):
         with tempfile.TemporaryDirectory() as tmp:
@@ -453,8 +626,13 @@ def fresh_runs(argv: list[str], n: int, timeout: float = 900,
                                    f"{proc.returncode}: {log[-2000:]}")
             with open(out) as f:
                 res = json.load(f)
+            with open(out + ".exit") as f:
+                res["exit_marks"] = [line.rstrip("\n").split("\t") for line in f]
         p, at = pieces(res, t_spawn, t_exit)
+        split, joined = exit_split(res, t_exit)
+        p.update(split)
         runs.append({"wall_s": t_exit - t_spawn, "pieces": p, "at": at,
+                     "exit": {"end": res.get("end"), "joined": joined},
                      "max_rss_mb": peak, "rss_at_peak": at_peak,
                      "rss_by_mapping": res["rss_by_mapping"],
                      "spans": [[s[0], s[1], round(s[2] - t_spawn, 6),
@@ -464,15 +642,22 @@ def fresh_runs(argv: list[str], n: int, timeout: float = 900,
     return runs
 
 
+def after_import(run: dict) -> float:
+    """A run's wall less its ``import torch``: what the port controls."""
+    return run["wall_s"] - (run["pieces"].get("import_torch") or 0.0)
+
+
 def summary(runs: list[dict]) -> dict:
-    """Walls, their median, and the median of each piece over the runs
-    that have it."""
+    """Walls, their median, the median of the walls less ``import torch``
+    (``after_import``), and the median of each piece over the runs that
+    have it."""
     keys = sorted({k for r in runs for k, v in r["pieces"].items() if v is not None})
     med = {k: statistics.median(v) for k in keys
            if (v := [r["pieces"][k] for r in runs if r["pieces"].get(k) is not None])}
     stages = sorted({k for r in runs for k in r["at"]["stages"]})
     return {"walls_s": [r["wall_s"] for r in runs],
             "median_wall_s": statistics.median(r["wall_s"] for r in runs),
+            "median_after_import_torch_s": statistics.median(map(after_import, runs)),
             "median_pieces_s": med,
             "median_stages_s": {k: statistics.median(r["at"]["stages"].get(k, 0.0)
                                                      for r in runs) for k in stages},
@@ -675,17 +860,13 @@ def _overlap_run(way: str, libs: str, env: dict) -> dict:
     return {**json.loads(r.stdout.strip().splitlines()[-1]), "wall_s": wall}
 
 
-def compare(argv: list[str], n: int, parent: str, clean: str | None = None) -> dict:
-    """``kssd_torch <argv>`` in fresh processes, three ways in turns: the
-    port of the checkout ``parent``, this checkout's, and this
-    checkout's with the card's start skipping its cuInit step
-    (``fresh_runs``' ``skip_cuinit``). One untimed round first (it builds
-    each checkout's kernels), then ``n`` rounds of one run of each, the
-    order turned by one each round. Each way's runs and summary, and the
-    median over the rounds of each way's wall less the parent's in the
-    same round."""
-    ways = {"parent": {"root": parent}, "change": {},
-            "change, no cuInit step": {"skip_cuinit": True}}
+def in_turns(argv: list[str], n: int, ways: dict[str, dict],
+             clean: str | None = None) -> dict:
+    """``kssd_torch <argv>`` in fresh processes, each way of ``ways`` (its
+    name, and ``fresh_runs``' keyword arguments) in turns: one untimed
+    round first (it builds each checkout's kernels), then ``n`` rounds of
+    one run of each, the order turned by one each round. Each way's
+    summary and runs."""
     names = list(ways)
     runs: dict[str, list] = {w: [] for w in names}
     for i in range(n + 1):
@@ -694,11 +875,137 @@ def compare(argv: list[str], n: int, parent: str, clean: str | None = None) -> d
             run = fresh_runs(argv, 1, clean=clean, **ways[w])[0]
             if i:
                 runs[w].append(run)
-    out = {w: {**summary(r), "runs": r} for w, r in runs.items()}
+    return {w: {**summary(r), "runs": r} for w, r in runs.items()}
+
+
+def compare(argv: list[str], n: int, parent: str, clean: str | None = None) -> dict:
+    """``in_turns`` of three ways: the port of the checkout ``parent``,
+    this checkout's (each ending as its CLI's entry ends), and this
+    checkout's ending through the interpreter's exit, each against the
+    parent round by round (``minus_first``)."""
+    return minus_first(in_turns(
+        argv, n, {"parent": {"root": parent}, "change": {},
+                  "change, the interpreter's exit": {"end": "interpreter"}}, clean))
+
+
+def minus_first(out: dict) -> dict:
+    """``out`` (``in_turns``' result) with, for each way after the first,
+    the median over the rounds of its wall less the first way's wall in
+    the same round (``median_minus_<first way>_s``), the same for the
+    walls less ``import torch`` (``..._after_import_torch_s``: torch's
+    import varies by seconds from one process to the next), and the
+    rounds where it was the lower of each."""
+    names = [w for w, r in out.items() if isinstance(r, dict) and "runs" in r]
+    base = out[names[0]]["runs"]
     for w in names[1:]:
-        out[w]["median_minus_parent_s"] = statistics.median(
-            a["wall_s"] - b["wall_s"] for a, b in zip(runs[w], runs["parent"]))
+        for tag, of in (("", lambda r: r["wall_s"]), ("_after_import_torch", after_import)):
+            diffs = [of(a) - of(b) for a, b in zip(out[w]["runs"], base)]
+            out[w][f"median_minus_{names[0]}{tag}_s"] = statistics.median(diffs)
+            out[w][f"rounds_below_{names[0]}{tag}"] = sum(d < 0 for d in diffs)
     return out
+
+
+def in_turn_lines(argv: list[str], out: str, exit_n: int, compare_n: int,
+                  parent: str | None) -> list[dict]:
+    """A cell's ``exit_ways`` (``exit_n`` rounds) and ``compare`` against
+    the checkout ``parent`` (``compare_n`` rounds) of ``argv``, which
+    writes ``out``: a result line for each asked for, its rounds under
+    "exit_ways" or "compare"."""
+    lines = []
+    if exit_n:
+        lines.append({"exit_ways": exit_n, **exit_ways(argv, exit_n, out)})
+    if compare_n:
+        lines.append({"compare": compare_n, **compare(
+            argv, compare_n, os.path.abspath(parent), out)})
+    return lines
+
+
+def without_runs(line: dict) -> dict:
+    """A result line of ``in_turns`` without each way's runs (``--out``
+    keeps them)."""
+    return {k: {kk: vv for kk, vv in v.items() if kk != "runs"} if isinstance(v, dict)
+            else v for k, v in line.items()}
+
+
+def exit_ways(argv: list[str], n: int, clean: str | None = None) -> dict:
+    """``in_turns`` of this checkout's port ending each way of ``ENDS``,
+    with each way's exit split (``exit_split``) in its summary's
+    ``median_pieces_s`` and its wall against the interpreter's exit's
+    (``minus_first``)."""
+    return minus_first(in_turns(argv, n, {e: {"end": e} for e in ENDS}, clean))
+
+
+_IMPORTTIME = re.compile(r"import time:\s+(\d+) \|\s+(\d+) \| (\s*)(\S+)")
+
+
+def import_split(top: int = 10) -> dict:
+    """Where ``import torch`` goes, in fresh processes of this host:
+    ``python3 -X importtime -c "import torch"`` twice in a row (each run's
+    wall, torch's cumulative seconds and the ``top`` largest self times),
+    ``LD_DEBUG=statistics`` of the same import (the dynamic loader's
+    lines: its start-up time and relocations, and the final relocation
+    counts, dlopen's included), and torch's ``__pycache__``: whether it
+    exists and may be written, and how many ``.pyc`` files torch's tree
+    held before these imports and after them. Then the import's wall as
+    this host runs it, and twice with bytecode written to and read from
+    a cache of its own (``-X pycache_prefix``, ``PYTHONDONTWRITEBYTECODE``
+    unset): the first compiles every module it imports and writes it,
+    the second reads what the first wrote."""
+    spec = importlib.util.find_spec("torch")
+    tree = os.path.dirname(spec.origin)
+
+    def pycs() -> dict:
+        n, newest = 0, 0.0
+        for d, _, files in os.walk(tree):
+            for f in files:
+                if f.endswith(".pyc"):
+                    n += 1
+                    newest = max(newest, os.path.getmtime(os.path.join(d, f)))
+        return {"pyc_files": n, "newest_pyc_mtime": newest}
+
+    before = pycs()
+    runs = []
+    for _ in range(2):
+        t = time.monotonic()
+        r = subprocess.run([sys.executable, "-X", "importtime", "-c", "import torch"],
+                           capture_output=True, text=True, timeout=600, check=True)
+        wall = time.monotonic() - t
+        rows = [(int(m[1]) / 1e6, int(m[2]) / 1e6, m[4]) for line in r.stderr.splitlines()
+                if (m := _IMPORTTIME.match(line))]
+        runs.append({"wall_s": wall,
+                     "torch_cumulative_s": next((c for _, c, name in rows if name == "torch"),
+                                                None),
+                     "self_s_sum": sum(x for x, _, _ in rows),
+                     "largest_self_s": [[name, x, c] for x, c, name in
+                                        sorted(rows, key=lambda r: -r[0])[:top]]})
+    t = time.monotonic()
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys, torch; print(bool(sys.flags.dont_write_bytecode))"],
+                       capture_output=True, text=True, timeout=600, check=True,
+                       env=dict(os.environ, LD_DEBUG="statistics"))
+    loader = {"wall_s": time.monotonic() - t,
+              "lines": [line.split(":", 1)[1].strip() for line in r.stderr.splitlines()
+                        if re.match(r"\s*\d+:\s+\S", line)]}
+    cache = os.path.join(tree, "__pycache__")
+    def wall(flags: list[str], env) -> float:
+        t = time.monotonic()
+        subprocess.run([sys.executable, *flags, "-c", "import torch"], env=env,
+                       capture_output=True, timeout=600, check=True)
+        return time.monotonic() - t
+
+    bytecode = {"as_run_s": wall([], os.environ)}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONDONTWRITEBYTECODE"}
+    with tempfile.TemporaryDirectory() as prefix:
+        bytecode["own_cache_s"] = [wall(["-X", f"pycache_prefix={prefix}"], env)
+                                   for _ in range(2)]
+        bytecode["pyc_written"] = sum(f.endswith(".pyc") for _, _, fs in os.walk(prefix)
+                                      for f in fs)
+    return {"importtime": runs, "ld_debug_statistics": loader, "bytecode": bytecode,
+            "pycache": {"dir": cache, "exists": os.path.isdir(cache),
+                        "writable": os.access(cache if os.path.isdir(cache) else tree,
+                                              os.W_OK),
+                        "dont_write_bytecode": r.stdout.strip() == "True",
+                        "before": before, "after": pycs()}}
 
 
 def gpu_name() -> str | None:
@@ -717,7 +1024,8 @@ def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--child"]:
         cut = argv.index("--")
-        return child(argv[1], argv[cut + 1:], "--skip-cuinit" in argv[2:cut])
+        flags = argv[2:cut]
+        return child(argv[1], argv[cut + 1:], flags[1] if flags[:1] == ["--end"] else None)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--overlap", type=int, default=0)
     ap.add_argument("--overlap-child", choices=WAYS, help=argparse.SUPPRESS)
@@ -726,6 +1034,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="the ways of --overlap, comma-separated [all]")
     ap.add_argument("--compare", type=int, default=0,
                     help="rounds of compare() of the command after --")
+    ap.add_argument("--exit", type=int, default=0,
+                    help="rounds of exit_ways() of the command after --")
+    ap.add_argument("--import-split", action="store_true",
+                    help="where import torch goes (import_split())")
+    ap.add_argument("--reread", metavar="FILE",
+                    help="summarize again the runs of the ways in turns that "
+                    "an --out FILE (of this tool, print_spans or stage1_spans) holds")
     ap.add_argument("--parent", help="the parent checkout for --compare")
     ap.add_argument("--clean", help="a path --compare removes after each run")
     ap.add_argument("--out", default=None)
@@ -741,15 +1056,28 @@ def main(argv: list[str] | None = None) -> int:
                 libs = json.load(f)
         print(json.dumps(overlap_child(args.overlap_child, libs)))
         return 0
+    if args.reread:
+        with open(args.reread) as f:
+            for line in map(json.loads, f):
+                ways = {w: {**summary(r["runs"]), "runs": r["runs"]} for w, r in line.items()
+                        if isinstance(r, dict) and "runs" in r}
+                if ways:
+                    print(json.dumps(without_runs(minus_first(ways))), flush=True)
+        return 0
     lines = []
     if args.compare:
         res = compare(command, args.compare, os.path.abspath(args.parent), args.clean)
         lines.append({"compare": command, **res})
-        print(json.dumps({"compare": command, **{
-            w: {k: v for k, v in r.items() if k != "runs"} for w, r in res.items()}}),
-            flush=True)
+        print(json.dumps(without_runs(lines[-1])), flush=True)
+    if args.exit:
+        res = exit_ways(command, args.exit, args.clean)
+        lines.append({"exit": command, **res})
+        print(json.dumps(without_runs(lines[-1])), flush=True)
     if args.overlap:
         lines.append({"overlap": overlap_runs(args.overlap, args.ways.split(","))})
+        print(json.dumps(lines[-1]), flush=True)
+    if args.import_split:
+        lines.append({"import_split": import_split()})
         print(json.dumps(lines[-1]), flush=True)
     lines.append({"gpu": gpu_name(), "host_cpus": len(os.sched_getaffinity(0))})
     print(json.dumps(lines[-1]), flush=True)

@@ -64,6 +64,11 @@ every 5 ms) split into anonymous and file-backed memory, and the median
 of each piece over the N runs. The printed line leaves out each run's
 spans; ``--out`` keeps them.
 
+``--exit N`` and ``--compare N --parent DIR`` run the call in fresh
+processes in turns, N rounds (``fresh_start.exit_ways``: the three ways a
+process ends; ``fresh_start.compare``: the parent checkout's port against
+this one's).
+
 ``--load`` loads the reference index onto the device in fresh
 processes (the card touched first, so no load pays for CUDA's start),
 once per route: the host route (``load_sparse_index``'s ``np.fromfile``,
@@ -87,7 +92,8 @@ same database (``--work`` of the first run).
 Run from the checkout's root, on a card::
 
     python3 tools/print_spans.py [--clock 3] [--calls 1] [--threads 0]
-                                 [--fresh N] [--load] [--refs N] [--queries N]
+                                 [--fresh N] [--exit N] [--compare N --parent DIR]
+                                 [--load] [--refs N] [--queries N]
                                  [--seed N] [--work DIR] [--reuse] [--out FILE]
 
 One JSON line per run on stdout, the last line a summary with the device
@@ -330,6 +336,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--calls", type=int, default=1)
     ap.add_argument("--threads", type=int, default=0, help="dist -p (0: every CPU)")
     ap.add_argument("--fresh", type=int, default=0)
+    ap.add_argument("--exit", type=int, default=0)
+    ap.add_argument("--compare", type=int, default=0)
+    ap.add_argument("--parent", help="the parent checkout of --compare")
     ap.add_argument("--load", action="store_true")
     ap.add_argument("--load-child", choices=("host", "device"), help=argparse.SUPPRESS)
     ap.add_argument("--load-threads", type=int, default=0, help=argparse.SUPPRESS)
@@ -395,6 +404,10 @@ def main(argv: list[str] | None = None) -> int:
         lines.append({"cell": SEARCH, **shape, "fresh_calls": args.fresh,
                       "index_bytes": n_bytes, **fresh_calls(dist("f"), args.fresh)})
         print(json.dumps(brief(lines[-1])), flush=True)
+    for line in fresh_start.in_turn_lines(dist("f"), os.path.join(args.work, "f"),
+                                          args.exit, args.compare, args.parent):
+        lines.append({"cell": SEARCH, **shape, **line})
+        print(json.dumps(fresh_start.without_runs(lines[-1])), flush=True)
     if args.load:
         lines.append({"cell": SEARCH, **shape,
                       "load": load_times(sref, max(args.clock, 1), device.type)})

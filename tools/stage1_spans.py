@@ -40,6 +40,11 @@ genomes by scanner (``scan_ms_by_route``: the reference
 of the inflated bytes; ``scan_ms_after_inflate``: the reference and
 ``kssd_fasta_scan`` right after each inflater route).
 
+``--exit N`` and ``--compare N --parent DIR`` run the call in fresh
+processes in turns, N rounds (``fresh_start.exit_ways``: the three ways a
+process ends; ``fresh_start.compare``: the parent checkout's port against
+this one's).
+
 ``--fresh N`` runs the call in N fresh processes without the profiler,
 through ``tools/fresh_start.py``: each process's wall and where its
 start went (the interpreter, ``import torch``, the port's imports, the
@@ -54,7 +59,8 @@ them.
 Run from the checkout's root, on a card::
 
     python3 tools/stage1_spans.py [--calls 2] [--clock 5] [--parse-split]
-                                  [--fresh N] [--seed N] [--out FILE]
+                                  [--fresh N] [--exit N] [--compare N --parent DIR]
+                                  [--seed N] [--out FILE]
 
 One JSON line per profiled call (and one for the clocked calls) on
 stdout, the last line a summary with the device name; ``--out`` also
@@ -513,6 +519,9 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=2)
     ap.add_argument("--fresh", type=int, default=0)
+    ap.add_argument("--exit", type=int, default=0)
+    ap.add_argument("--compare", type=int, default=0)
+    ap.add_argument("--parent", help="the parent checkout of --compare")
     ap.add_argument("--clock", type=int, default=0)
     ap.add_argument("--parse-split", action="store_true")
     ap.add_argument("--seed", type=int, default=SEED)
@@ -566,6 +575,14 @@ def main(argv: list[str] | None = None) -> int:
         lines.append({"cell": STAGE1, "fresh_calls": args.fresh,
                       **fresh_start.summary(runs), "runs": runs})
         print(json.dumps(brief(lines[-1])), flush=True)
+    if args.exit or args.compare:
+        import fresh_start
+
+        out = os.path.join(args.work, "f")
+        for line in fresh_start.in_turn_lines(dist(out), out, args.exit, args.compare,
+                                              args.parent):
+            lines.append({"cell": STAGE1, **line})
+            print(json.dumps(fresh_start.without_runs(lines[-1])), flush=True)
     if args.parse_split:
         lines.append({"cell": STAGE1, "parse_split": parse_split(refs)})
         print(json.dumps(lines[-1]), flush=True)
