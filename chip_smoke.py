@@ -116,12 +116,19 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               naming exactly the 12 planted references, the three
               largest shares leading the mean-abundance column in order;
               -b .abv files byte-equal between cuda and cpu; -i, then -s
-              0|1|2 by the host walk and by the dense search on the card
+              0|1|2 by the host walk and by the dense search on the card;
+              the -q runs of both devices never reach the host query
+              table or hit statistics (_query_table, _hits_to_stats)
      7b. composite at the GTDB species-group database's shape (65,702
               references x 300 codes, synthdb) with 8 samples of
               200,000 codes (koc): the reports over the indexed DB (CSR
               route) and over an unindexed copy (raw route) byte-equal
-              to the host oracle
+              to the host oracle, each route's stages and hit keys
+              logged; the host versions refused while they run, each
+              query table the route built on the card equal to
+              _query_table's (directory included), and the card's
+              statistics of the route's hit keys equal to _hits_to_stats
+              of the same keys fetched to the host
   8. sharded main path (the mesh search and composite on one card):
      8a. sharded_search_counts on phase 5's 1,000 x 10k DB over the
               meshes [cuda:0] 1x1 and [cuda:0]*4 at 1x4 and 2x2, by the
@@ -133,7 +140,8 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               distance.out byte-equal to phase 6's plain run
      8c. kssd_torch composite --mesh 1 on phase 7b's GTDB shape, and the
               same join over [cuda:0]*4: reports byte-equal to 7b's host
-              oracle report
+              oracle report, the statistics on the card (the host
+              versions refused)
      8d. dist --shard 0:2, --shard 1:2 and --merge-shards on phase 4's
               references: the merged combco files byte-equal to phase
               4's unsharded stage I
@@ -303,6 +311,25 @@ def run_cli_out(*argv: str) -> tuple[float, str]:
     if rc != 0:
         raise RuntimeError(f"kssd_torch {' '.join(argv)} exited {rc}")
     return dt, buf.getvalue()
+
+
+@contextlib.contextmanager
+def host_stats_refused():
+    """composite's host query table and hit statistics (_query_table,
+    _hits_to_stats: the JAX package's host versions, kept as oracles)
+    raise while this is open: a device route must not reach them."""
+    from public_kssd_tpu_torch import composite
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a device route of composite reached its host "
+                             "query table or hit statistics")
+
+    saved = composite._query_table, composite._hits_to_stats
+    composite._query_table = composite._hits_to_stats = refuse
+    try:
+        yield
+    finally:
+        composite._query_table, composite._hits_to_stats = saved
 
 
 def same_bytes(a: str, b: str) -> int:
@@ -1540,8 +1567,10 @@ def phase_reads(work: str) -> None:
         f"--koc-out search {t_koc:.3f} s; distance.out {n_lines} lines, {size} B, "
         "byte-equal to --cpu-count")
 
-    t_cuda, rep = run_cli_out("composite", "-r", ref, "-q", koc)
-    t_cpu, rep_cpu = run_cli_out("composite", "-r", ref, "-q", koc, "--device", "cpu")
+    with host_stats_refused():
+        t_cuda, rep = run_cli_out("composite", "-r", ref, "-q", koc)
+        t_cpu, rep_cpu = run_cli_out("composite", "-r", ref, "-q", koc,
+                                     "--device", "cpu")
     oracle = composite.species_abundance(ref, koc, device=None)
     if not rep or rep != rep_cpu or rep != oracle:
         raise AssertionError("composite report differs between --device cuda, "
@@ -1559,8 +1588,9 @@ def phase_reads(work: str) -> None:
             f"abundance of the top three {[r[2] for r in by_mean[:3]]} in planted order")
     abv = {}
     for dev in ("cuda", "cpu"):
-        run_cli("composite", "-r", ref, "-q", koc, "-b", "-o", f"{root}/abv_{dev}",
-                "--device", dev)
+        with host_stats_refused():
+            run_cli("composite", "-r", ref, "-q", koc, "-b", "-o",
+                    f"{root}/abv_{dev}", "--device", dev)
         abv[dev] = sorted(os.listdir(f"{root}/abv_{dev}"))
     if abv["cuda"] != abv["cpu"] or len(abv["cuda"]) != N_SAMPLES:
         raise AssertionError(f".abv files differ: {abv}")
@@ -1636,26 +1666,85 @@ def phase_gtdb(work: str) -> tuple[dict[str, int], str]:
     utils.log.addHandler(stages)
     launches = {}
     walls = {}
+    seen: dict[str, list] = {}
+    real_table, real_stats = composite._query_table_device, composite._hits_to_stats_torch
+
+    def table(*args):
+        seen["tables"].append((args, real_table(*args)))
+        return seen["tables"][-1][1]
+
+    def stats(*args):
+        seen["stats"].append((args, real_stats(*args)))
+        return seen["stats"][-1][1]
+
+    composite._query_table_device, composite._hits_to_stats_torch = table, stats
     try:
         for route, d in (("csr", idx), ("raw", ref)):
+            seen.update(tables=[], stats=[])
             before = kernels.join_kernel.launches
-            walls[route], rep = run_cli_out("composite", "-r", d, "-q", qry)
+            with host_stats_refused():
+                walls[route], rep = run_cli_out("composite", "-r", d, "-q", qry)
             launches[route] = kernels.join_kernel.launches - before
             if rep != oracle or not rep:
                 raise AssertionError(f"GTDB-shaped composite report on the {route} "
                                      "route differs from the host oracle")
+            hits, rows = check_device_stats(route, seen)
             log(f"[gtdb] {route} route: report ({len(rep.splitlines())} lines) "
                 f"byte-equal to the host oracle; CLI wall {walls[route]:.3f} s, "
                 f"stages {stages.stages['composite']}; join launches "
-                f"{launches[route]}")
+                f"{launches[route]}; {hits} hit keys stayed on the card, "
+                f"{rows} (query, ref) rows of aggregates fetched; the card's "
+                "statistics equal _hits_to_stats of the same keys on the host, "
+                "its query table _query_table's")
     finally:
         utils.log.removeHandler(stages)
+        composite._query_table_device, composite._hits_to_stats_torch = (
+            real_table, real_stats)
     log(f"[gtdb] {GTDB_REFS} refs x {GTDB_SKETCH} codes, {GTDB_SAMPLES} samples x "
         f"{GTDB_SAMPLE_CODES} codes: stage II index {t_index:.3f} s; host oracle "
         f"{t_oracle:.3f} s; CLI composite csr {walls['csr']:.3f} s, raw "
         f"{walls['raw']:.3f} s")
     shutil.rmtree(idx)
     return launches, oracle
+
+
+def check_device_stats(route: str, seen: dict, on: str = "cuda") -> tuple[int, int]:
+    """7b: each query table the route built on the card
+    (_query_table_device) against _query_table of the same combco arrays,
+    directory included, and the card's statistics of the route's hit keys
+    (_hits_to_stats_torch) against _hits_to_stats of the same keys
+    fetched to the host; exact; ``on``: the device type both must be on.
+    Returns (hit keys, rows of aggregates)."""
+    import torch
+
+    from public_kssd_tpu_torch import composite
+
+    if not seen["tables"] or len(seen["stats"]) != 1:
+        raise AssertionError(f"{route} route: {len(seen['tables'])} query tables, "
+                             f"{len(seen['stats'])} statistics calls")
+    for (qc, qi, qa, n_qry, dev), (sq, sqid, sab, (qdir, shift)) in seen["tables"]:
+        if sq.device.type != on:
+            raise AssertionError(f"{route} route: the query table is on {sq.device}")
+        w_sq, w_sqid, w_sab, n = composite._query_table(qc, qi, qa, n_qry)
+        host = torch.from_numpy(w_sq[:n].view(np.int32))
+        w_dir, w_shift = composite.query_directory(host, int(w_sq[n - 1]) if n else 0)
+        if not (np.array_equal(sq.cpu().numpy().view(np.uint32), w_sq[:n])
+                and np.array_equal(sqid.cpu().numpy(), w_sqid[:n])
+                and np.array_equal(sab.cpu().numpy(), w_sab[:n].astype(np.int32))
+                and shift == w_shift and torch.equal(qdir.cpu(), w_dir)):
+            raise AssertionError(f"{route} route: the card's query table != "
+                                 "_query_table's")
+    (parts, n_qry, n_ref, qid_shift, dev), got = seen["stats"][0]
+    if any(p.device.type != on for p in parts):
+        raise AssertionError(f"{route} route: hit keys left the card")
+    keys = [p.cpu().numpy() for p in parts]
+    want = composite._hits_to_stats(keys, n_qry, n_ref, qid_shift)
+    for qn, (g, w) in enumerate(zip(got, want, strict=True)):
+        for a, b in zip(g, w, strict=True):
+            if a.dtype != np.int64 or not np.array_equal(a, b):
+                raise AssertionError(f"{route} route, query {qn}: the card's "
+                                     "statistics != _hits_to_stats's")
+    return sum(k.size for k in keys), sum(int((g[0] > 0).sum()) for g in got)
 
 
 def phase_sharded_counts(device, work: str) -> None:
@@ -1730,19 +1819,20 @@ def phase_sharded_cli(work: str, wide_stages: dict[str, float],
         utils.log.removeHandler(stages)
 
     gtdb = f"{work}/gtdb"
-    t, rep = run_cli_out("composite", "-r", f"{gtdb}/ref", "-q", f"{gtdb}/qry",
-                         "--mesh", "1")
     dev = resolve_device("cuda")
-    t0 = time.perf_counter()
-    rep4 = sharded_composite.species_abundance_sharded(
-        f"{gtdb}/ref", f"{gtdb}/qry", parallel.Mesh(1, 4, (dev,) * 4)
-    )
-    t4 = time.perf_counter() - t0
+    with host_stats_refused():
+        t, rep = run_cli_out("composite", "-r", f"{gtdb}/ref", "-q", f"{gtdb}/qry",
+                             "--mesh", "1")
+        t0 = time.perf_counter()
+        rep4 = sharded_composite.species_abundance_sharded(
+            f"{gtdb}/ref", f"{gtdb}/qry", parallel.Mesh(1, 4, (dev,) * 4)
+        )
+        t4 = time.perf_counter() - t0
     if not rep or rep != gtdb_oracle or rep4 != gtdb_oracle:
         raise AssertionError("composite --mesh report differs from the host oracle")
     log(f"[sharded] GTDB shape composite --mesh 1: report ({len(rep.splitlines())} "
         f"lines) byte-equal to the host oracle, CLI wall {t:.3f} s; the same over "
-        f"[cuda:0]*4 {t4:.3f} s")
+        f"[cuda:0]*4 {t4:.3f} s; neither reached the host statistics")
 
     files = sorted(os.listdir(f"{work}/refs"))
     half = -(-len(files) // 2)

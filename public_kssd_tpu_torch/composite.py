@@ -20,10 +20,15 @@ version, run for CPU tensors): every reference DB row — a code of the
 stage II inverted index with its postings, or a raw DB code with its
 genome id — is joined against ALL queries' sorted codes at once and
 emits packed int64 hit keys ``qid << qid_shift | rid << 16 | abundance``.
-The host then sorts the keys and reduces per-reference integer
-aggregates (``_hits_to_stats``), so the report is the same bytes
-whichever backend computed them. ``device=None`` is the host numpy
-oracle. The host functions shared with public_kssd_tpu.composite are
+The query table is built where the join runs (``_query_table_device``:
+one stable ``torch.sort`` of ``code << 31 | qid``), and the keys stay
+there: one ``torch.sort`` groups them by (query, reference), prefix sums
+and gathers give each group's integer aggregates
+(``_hits_to_stats_torch``), and only those rows come back to the host,
+so the report is the same bytes whichever backend computed them.
+``device=None`` is the host numpy oracle; ``_query_table`` and
+``_hits_to_stats``, the JAX package's host versions, stay as its
+oracles. The host functions shared with public_kssd_tpu.composite are
 copies kept identical by tests/test_torch_package.py.
 """
 
@@ -271,17 +276,147 @@ def _hits_to_stats(
     ]
 
 
-def _upload_table(qtable, device: torch.device):
-    """One component's combined query table (``_query_table``) on
-    ``device`` as int32 tensors, without its padding (the kernel needs no
-    static shape, and a pad code 0xFFFFFFFF could equal a real code), and
-    its ``query_directory``: (sq, sqid, sab, directory)."""
-    sq_p, sqid_p, sab_p, n_q = qtable
-    host = [torch.from_numpy(a[:n_q].astype(np.uint32).view(np.int32))
-            for a in (sq_p, sqid_p, sab_p)]
-    sq, sqid, sab = (t.to(device) for t in host)
-    max_key = int(sq_p[n_q - 1]) if n_q else 0
-    return sq, sqid, sab, query_directory(sq, max_key, host[0])
+def _query_table_device(qc, qi, qa, n_qry: int, device: torch.device):
+    """One component's combined query table (``_query_table``'s entries,
+    in its order, without its padding) built on ``device``, and its
+    ``query_directory``: (sq, sqid, sab, directory), int32 tensors.
+
+    The combco arrays are uploaded as read (codes as an int32 bit view,
+    the abundances as int16, the index); each entry's query id comes from
+    the index there. One stable sort of the int64 key ``code << 31 |
+    qid`` (the uint32 code and ``qid < 2^31``: the key stays below 2^63,
+    so signed order is unsigned (code, qid) order) keeps entries of one
+    (code, query) in file order, and the first of each run is kept, as
+    ``_query_table`` keeps the first occurrence. The table's last code is
+    the one value read back."""
+    n = int(qc.size)
+    with torch.profiler.record_function("table.upload"):
+        codes = torch.from_numpy(
+            np.ascontiguousarray(qc, "<u4").view(np.int32)).to(device)
+        abund = torch.from_numpy(
+            np.ascontiguousarray(qa, "<u2").view(np.int16)).to(device)
+        ends = torch.from_numpy(
+            np.ascontiguousarray(qi[1:], "<u8").view(np.int64)).to(device)
+    with torch.profiler.record_function("table.sort"):
+        qid = torch.searchsorted(
+            ends, torch.arange(n, dtype=torch.int64, device=device), right=True)
+        key = ((codes.to(torch.int64) & 0xFFFFFFFF) << 31) | qid
+        key, order = torch.sort(key, stable=True)
+        first = torch.ones(n, dtype=torch.bool, device=device)
+        torch.ne(key[1:], key[:-1], out=first[1:])
+        order = order[first]
+        sq = codes[order]
+        sqid = qid[order].to(torch.int32)
+        sab = abund[order].to(torch.int32) & 0xFFFF
+    max_key = int(sq[-1]) & 0xFFFFFFFF if sq.numel() else 0
+    return sq, sqid, sab, query_directory(sq, max_key)
+
+
+# device bytes the statistics need per hit key beyond the key itself:
+# the concatenation (8), the sort's values, indices and scratch (~32), a
+# key's group, boundary flag and prefix sum (~17); rounded up
+STATS_BYTES_PER_KEY = 64
+
+
+def _free_bytes(device: torch.device) -> int | None:
+    """Bytes still free for the statistics on ``device``: the card's free
+    memory and what torch's allocator holds unused; None on the host."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _check_stats_budget(n_keys: int, device: torch.device) -> None:
+    """The keys' sort and reduction must fit the device: there is no host
+    route to fall back to."""
+    free = _free_bytes(device)
+    if free is not None and n_keys * STATS_BYTES_PER_KEY > free:
+        raise MemoryError(
+            f"composite hits ({n_keys}) need {n_keys * STATS_BYTES_PER_KEY} "
+            f"bytes of {device} memory for their statistics, {free} are "
+            "free; split the query sketch dir into smaller batches"
+        )
+
+
+def _segments_torch(keys: torch.Tensor, qid_shift: int) -> torch.Tensor:
+    """int64 [8, n_segments]: (qid, rid, kmer_num, total, median, max,
+    lastsum, lastn) of each run of equal ``key >> 16`` in the ascending
+    hit keys, the aggregates exactly as ``_segment_stats_np`` defines
+    them for one reference (the run's abundances are ascending)."""
+    dev, n = keys.device, keys.numel()
+    group = keys >> 16
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    torch.ne(group[1:], group[:-1], out=new[1:])
+    start = torch.nonzero(new).squeeze(1)
+    group = group[start]
+    vals = keys & 0xFFFF
+    # int64 prefix sums: exact, where numpy's float64 bincount is exact
+    # while a sum stays below 2^53 (n < 2^37 keys of < 2^16 each)
+    ex = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(vals, 0, out=ex[1:])
+    end = torch.empty_like(start)
+    end[:-1] = start[1:]
+    end[-1:] = n
+    k = end - start
+    median = torch.where(k >= 2, vals[start + (k // 2 - 1).clamp(min=0)], 0)
+    # the same IEEE float64 products as numpy, truncated as astype does
+    kf = k.to(torch.float64)
+    st = (kf * ST_PCTL).to(torch.int64)
+    hi = torch.minimum((kf * ED_PCTL).to(torch.int64), k)
+    lastsum = ex[start + hi] - ex[start + st.clamp(min=1) - 1]
+    rid_mask = (1 << (qid_shift - 16)) - 1
+    return torch.stack([
+        group >> (qid_shift - 16), group & rid_mask, k, ex[end] - ex[start],
+        median, vals[end - 1], lastsum, hi - st + 1,
+    ])
+
+
+def _stats_by_query(seg: np.ndarray, n_qry: int, n_ref: int) -> list[tuple]:
+    """``_segments_torch``'s rows (on the host, ascending by query, then
+    reference) -> per-query stats6 over all ``n_ref`` references; a
+    reference without hits gets (0, 0, 0, 0, 0, 1), as
+    ``_segment_stats_np`` gives it."""
+    bounds = np.searchsorted(seg[0], np.arange(n_qry + 1, dtype=np.int64))
+    out = []
+    for qn in range(n_qry):
+        a, b = bounds[qn], bounds[qn + 1]
+        rid = seg[1, a:b]
+        stats = [np.zeros(n_ref, np.int64) for _ in range(5)]
+        stats.append(np.ones(n_ref, np.int64))
+        for s, row in zip(stats, seg[2:]):
+            s[rid] = row[a:b]
+        out.append(tuple(stats))
+    return out
+
+
+def _hits_to_stats_torch(parts: list[torch.Tensor], n_qry: int, n_ref: int,
+                         qid_shift: int, device: torch.device | None = None,
+                         ) -> list[tuple]:
+    """``_hits_to_stats`` where the keys are: the join's int64 key
+    tensors are joined on ``device`` (default: the first part's), sorted
+    once there (keys are non-negative, so they sort as (qid, rid,
+    abundance)), reduced to one row of aggregates per (query, reference)
+    pair with hits (``_segments_torch``), and only those rows come back
+    to the host. CPU tensors run the same torch calls (the plain
+    version). Past the device's memory budget it raises MemoryError."""
+    if device is None:
+        device = parts[0].device if parts else torch.device("cpu")
+    n = sum(int(p.numel()) for p in parts)
+    _check_stats_budget(n, device)
+    if n == 0:
+        return _stats_by_query(np.zeros((8, 0), np.int64), n_qry, n_ref)
+    with torch.profiler.record_function("stats.sort"):
+        keys = [p.to(device) for p in parts if p.numel()]
+        keys = torch.sort(keys[0] if len(keys) == 1 else torch.cat(keys)).values
+    with torch.profiler.record_function("stats.reduce"):
+        seg = _segments_torch(keys, qid_shift)
+        del keys
+    with torch.profiler.record_function("stats.fetch"):
+        seg = seg.cpu().numpy()
+    with torch.profiler.record_function("stats.host"):
+        return _stats_by_query(seg, n_qry, n_ref)
 
 
 def _csr_stats_device(components, qtables, n_qry: int, n_ref: int,
@@ -290,22 +425,21 @@ def _csr_stats_device(components, qtables, n_qry: int, n_ref: int,
     the DeviceIndex objects of ``index.load_device_index``, or SparseIndex
     objects whose device residency is shared with search
     (``ops.count.DeviceIndex.from_sparse`` caches it on the index: one
-    upload per process); ``qtables`` the per-component query tables."""
+    upload per process); ``qtables`` the per-component query tables of
+    ``_query_table_device`` on ``device``. The hit keys stay there."""
     qid_shift = 16 + max(int(n_ref).bit_length(), 1)
     _check_key_width(qid_shift, n_qry)
-    hit_parts: list[np.ndarray] = []
-    for sp, qtable in zip(components, qtables):
+    hit_parts: list[torch.Tensor] = []
+    for sp, (sq, sqid, sab, qdir) in zip(components, qtables):
         index = count_ops.DeviceIndex.from_sparse(sp, device)
-        sq, sqid, sab, qdir = _upload_table(qtable, index.device)
         nnz = index.uniq.numel()
         for c0 in range(0, nnz, JOIN_CHUNK):
             c1 = min(c0 + JOIN_CHUNK, nnz)
-            keys = join_kernel(
+            hit_parts.append(join_kernel(
                 index.uniq[c0:c1], index.offsets[c0 : c1 + 1], index.gids,
                 sq, sqid, sab, qid_shift, qdir,
-            )
-            hit_parts.append(keys.cpu().numpy())
-    return _hits_to_stats(hit_parts, n_qry, n_ref, qid_shift)
+            ))
+    return _hits_to_stats_torch(hit_parts, n_qry, n_ref, qid_shift, device)
 
 
 def _batched_stats_device(comps, n_qry: int, n_ref: int,
@@ -313,22 +447,22 @@ def _batched_stats_device(comps, n_qry: int, n_ref: int,
     """Per-query stats6 via the raw-code join: ``comps`` rows are the
     host arrays (ref_codes, rid_of, qry_codes, qry_index, qry_abund) of
     ``_query_stats_host``; each DB code is a row with one posting, its
-    genome id. One chunked DB pass serves all queries."""
+    genome id. One chunked DB pass serves all queries; the query tables
+    are built and the hit keys kept on ``device``."""
     qid_shift = 16 + max(int(n_ref).bit_length(), 1)
     _check_key_width(qid_shift, n_qry)
-    hit_parts: list[np.ndarray] = []
+    hit_parts: list[torch.Tensor] = []
     for ref_codes, rid_of, qc, qi, qa in comps:
-        sq, sqid, sab, qdir = _upload_table(_query_table(qc, qi, qa, n_qry),
-                                            device)
+        sq, sqid, sab, qdir = _query_table_device(qc, qi, qa, n_qry, device)
         for c0 in range(0, ref_codes.size, JOIN_CHUNK):
             c1 = min(c0 + JOIN_CHUNK, ref_codes.size)
             u = torch.from_numpy(
                 np.ascontiguousarray(ref_codes[c0:c1], "<u4").view(np.int32)
             ).to(device)
             rid = torch.from_numpy(rid_of[c0:c1].astype(np.int32)).to(device)
-            keys = join_kernel(u, None, rid, sq, sqid, sab, qid_shift, qdir)
-            hit_parts.append(keys.cpu().numpy())
-    return _hits_to_stats(hit_parts, n_qry, n_ref, qid_shift)
+            hit_parts.append(
+                join_kernel(u, None, rid, sq, sqid, sab, qid_shift, qdir))
+    return _hits_to_stats_torch(hit_parts, n_qry, n_ref, qid_shift, device)
 
 
 def _check_key_width(qid_shift: int, n_qry: int) -> None:
@@ -431,8 +565,10 @@ def species_abundance(
     command_composite.c:389-547).
 
     ``device=None`` runs the host oracle (a per-query vectorised join
-    over the raw DB codes). A torch device runs ``join_kernel`` there
-    for all queries at once: over the stage II inverted index when
+    over the raw DB codes). A torch device builds the query table
+    (``_query_table_device``), runs ``join_kernel`` and reduces the hit
+    keys (``_hits_to_stats_torch``) there, for all queries at once:
+    over the stage II inverted index when
     ``ref_components`` (SparseIndex or DeviceIndex per component) are
     given — the index search uses, so a composite after a search in one
     process uploads it once — or the ref dir carries the CSR sidecar
@@ -476,7 +612,7 @@ def species_abundance(
                 qtables = []
                 for c in range(ref_stat.comp_num):
                     qc, qi, qa = formats.read_combco(qry_dir, c, with_abund=True)
-                    qtables.append(_query_table(qc, qi, qa, n_qry))
+                    qtables.append(_query_table_device(qc, qi, qa, n_qry, device))
             with timer.stage("join"):
                 stats_all = _csr_stats_device(
                     ref_components, qtables, n_qry, n_ref, device

@@ -15,12 +15,13 @@ axis of a 1 x S mesh:
     on its device with the 64-bit-key instance of csrc/join.cu
     (``join64``), which sizes its output exactly: no capacity, no retry,
     no padding;
-  * the packed hit keys ``qid << shift | rid << 16 | abundance`` are the
-    only data that leaves the devices; across processes they are
-    gathered with ``parallel.all_gather_objects``;
+  * the packed hit keys ``qid << shift | rid << 16 | abundance`` stay on
+    the devices in one process; across processes they are gathered with
+    ``parallel.all_gather_objects`` and uploaded again;
   * per-(query, ref) count/sum/median/percentile statistics run on the
-    gathered hits with the host oracle (composite._hits_to_stats), so
-    the report text is integer-exact vs every other backend by
+    first local slot's device (composite._hits_to_stats_torch: one sort
+    of the keys there, only the per-(query, ref) aggregates come back),
+    so the report text is integer-exact vs every other backend by
     construction.
 """
 
@@ -125,7 +126,8 @@ def species_abundance_sharded(
     # the query table and its directory per device, built once there
     tables: dict[torch.device, tuple] = {}
     parts: list[torch.Tensor] = []
-    for _, r, dev in mesh.local_slots():
+    slots = mesh.local_slots()
+    for _, r, dev in slots:
         if dev not in tables:
             t = tuple(a.to(dev) for a in host_table)
             tables[dev] = (t, composite.query_directory(t[0], max_key,
@@ -138,10 +140,13 @@ def species_abundance_sharded(
                 torch.from_numpy(k[c0:c1].view(np.int64)).to(dev), None,
                 torch.from_numpy(rid[c0:c1]).to(dev), *table, qid_shift, qdir,
             ))
-    hits = [t.cpu().numpy() for t in parts]
+    first = slots[0][2] if slots else torch.device("cpu")
     if parallel.process_count() > 1:
-        hits = [h for got in parallel.all_gather_objects(hits) for h in got]
-    stats_all = composite._hits_to_stats(hits, n_qry, n_ref, qid_shift)
+        hits = [t.cpu().numpy() for t in parts]
+        parts = [torch.from_numpy(h).to(first)
+                 for got in parallel.all_gather_objects(hits) for h in got]
+    stats_all = composite._hits_to_stats_torch(parts, n_qry, n_ref, qid_shift,
+                                               first)
     # every process reaches this tail with identical gathered hits; the
     # .abv SIDE-EFFECT writes must happen once (concurrent identical
     # writes race on shared filesystems), so only process 0 writes —

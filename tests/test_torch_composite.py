@@ -280,7 +280,7 @@ def test_join_wrapper_order_and_limit(monkeypatch):
 
 def _directory_table(case):
     """(unsigned ascending table keys, (dir, shift)) as the join's callers
-    build them: ``_upload_table`` over ``_query_table`` for uint32 codes,
+    build them: ``_query_table_device`` for uint32 codes,
     ``query_directory`` over folded uint64 keys for the mesh join."""
     from public_kssd_tpu_torch.ops import count
 
@@ -300,8 +300,7 @@ def _directory_table(case):
         qc, qidx, qa = (np.zeros(0, np.uint32), np.zeros(3, np.uint64),
                         np.zeros(0, np.uint16))
         n_qry = 2
-    qtable = composite._query_table(qc, qidx, qa, n_qry)
-    sq, _, _, directory = composite._upload_table(qtable, CPU)
+    sq, _, _, directory = composite._query_table_device(qc, qidx, qa, n_qry, CPU)
     return sq.numpy().view(np.uint32), directory
 
 

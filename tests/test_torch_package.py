@@ -101,7 +101,9 @@ DIFFERING = {
     # parallel/sharded_composite on a torch device mesh; the CSR route
     # (species_abundance, _csr_stats_device) reads its index straight
     # onto the device (index.load_device_index) and takes DeviceIndex
-    # components
+    # components; the device routes build the query table and reduce the
+    # hit keys on the device (_query_table_device, _hits_to_stats_torch),
+    # so _query_table and _hits_to_stats stay the host oracles
     "composite": {
         "DEVICE_JOIN_THRESHOLD", "_batched_join_impl", "_BATCH_JOIN",
         "_batched_join_fn", "_csr_join_impl", "_CSR_JOIN", "_csr_join_fn",
@@ -122,7 +124,9 @@ DIFFERING = {
         "sharded_search_counts", "estimate_capacity", "_sharded_count_block",
     },
     # ragged position shards joined by csrc/join.cu's 64-bit-key
-    # instance: no pad key, no capacity retry; the folds are the same
+    # instance: no pad key, no capacity retry; the hit statistics run on
+    # the first local slot's device (composite._hits_to_stats_torch);
+    # the folds are the same
     "parallel/sharded_composite": {
         "_PAD_KEY", "_shard_db", "_make_join_fn", "species_abundance_sharded",
     },
