@@ -124,11 +124,17 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               200,000 codes (koc): the reports over the indexed DB (CSR
               route) and over an unindexed copy (raw route) byte-equal
               to the host oracle, each route's stages and hit keys
-              logged; the host versions refused while they run, each
+              logged; the host versions refused while they run (the
+              host's DB read and genome ids, _raw_components, too: the
+              raw route reads its DB straight onto the card), each
               query table the route built on the card equal to
               _query_table's (directory included), and the card's
               statistics of the route's hit keys equal to _hits_to_stats
-              of the same keys fetched to the host
+              of the same keys fetched to the host; both routes again
+              under two forced small budgets of free bytes, one that
+              splits the statistics into ranges of whole queries and one
+              that cuts the largest query by reference: reports
+              byte-equal to the host oracle, the ranges logged
   8. sharded main path (the mesh search and composite on one card):
      8a. sharded_search_counts on phase 5's 1,000 x 10k DB over the
               meshes [cuda:0] 1x1 and [cuda:0]*4 at 1x4 and 2x2, by the
@@ -316,20 +322,25 @@ def run_cli_out(*argv: str) -> tuple[float, str]:
 @contextlib.contextmanager
 def host_stats_refused():
     """composite's host query table and hit statistics (_query_table,
-    _hits_to_stats: the JAX package's host versions, kept as oracles)
-    raise while this is open: a device route must not reach them."""
+    _hits_to_stats: the JAX package's host versions, kept as oracles) and
+    the host oracle's DB read with its genome ids (_raw_components,
+    rid_of) raise while this is open: a device route must not reach
+    them."""
     from public_kssd_tpu_torch import composite
 
     def refuse(*args, **kwargs):
         raise AssertionError("a device route of composite reached its host "
-                             "query table or hit statistics")
+                             "query table, hit statistics or DB read")
 
-    saved = composite._query_table, composite._hits_to_stats
-    composite._query_table = composite._hits_to_stats = refuse
+    names = ("_query_table", "_hits_to_stats", "_raw_components")
+    saved = [getattr(composite, n) for n in names]
+    for n in names:
+        setattr(composite, n, refuse)
     try:
         yield
     finally:
-        composite._query_table, composite._hits_to_stats = saved
+        for n, fn in zip(names, saved):
+            setattr(composite, n, fn)
 
 
 def same_bytes(a: str, b: str) -> int:
@@ -1666,6 +1677,8 @@ def phase_gtdb(work: str) -> tuple[dict[str, int], str]:
     utils.log.addHandler(stages)
     launches = {}
     walls = {}
+    route_stages: dict[str, dict] = {}
+    slice_bytes: dict[str, int] = {}
     seen: dict[str, list] = {}
     real_table, real_stats = composite._query_table_device, composite._hits_to_stats_torch
 
@@ -1689,13 +1702,26 @@ def phase_gtdb(work: str) -> tuple[dict[str, int], str]:
                 raise AssertionError(f"GTDB-shaped composite report on the {route} "
                                      "route differs from the host oracle")
             hits, rows = check_device_stats(route, seen)
+            route_stages[route] = dict(stages.stages["composite"])
+            (parts, *_), got = seen["stats"][0]
+            slice_bytes[route] = composite._slice_bytes(parts)
+            per_query = [int(g[0].sum()) for g in got]
+            largest_run = max(int(g[0].max()) for g in got)
+            del parts, got
+            seen.update(tables=[], stats=[])
             log(f"[gtdb] {route} route: report ({len(rep.splitlines())} lines) "
                 f"byte-equal to the host oracle; CLI wall {walls[route]:.3f} s, "
-                f"stages {stages.stages['composite']}; join launches "
+                f"stages {route_stages[route]}; join launches "
                 f"{launches[route]}; {hits} hit keys stayed on the card, "
                 f"{rows} (query, ref) rows of aggregates fetched; the card's "
                 "statistics equal _hits_to_stats of the same keys on the host, "
-                "its query table _query_table's")
+                "its query table _query_table's; the DB read straight onto the "
+                "card, _raw_components refused")
+        log("[gtdb] stages by route: " + "; ".join(
+            f"{r} load {route_stages[r].get('load', 0.0):.3f} s, join "
+            f"{route_stages[r].get('join', 0.0):.3f} s" for r in ("csr", "raw")))
+        check_forced_budgets(idx, ref, qry, oracle, per_query, largest_run,
+                             slice_bytes, seen)
     finally:
         utils.log.removeHandler(stages)
         composite._query_table_device, composite._hits_to_stats_torch = (
@@ -1706,6 +1732,55 @@ def phase_gtdb(work: str) -> tuple[dict[str, int], str]:
         f"{walls['raw']:.3f} s")
     shutil.rmtree(idx)
     return launches, oracle
+
+
+def check_forced_budgets(idx: str, ref: str, qry: str, oracle: str,
+                         per_query: list[int], largest_run: int,
+                         slice_bytes: dict[str, int], seen: dict) -> None:
+    """7b: both routes under a forced small budget of the card's free
+    bytes (composite._free_bytes), one that cuts the hit keys' statistics
+    into ranges of whole queries and one that cuts the largest query by
+    reference: reports byte-equal to the host oracle, the ranges counted
+    and logged."""
+    from public_kssd_tpu_torch import composite
+
+    n = sum(per_query)
+    qid_shift = 16 + GTDB_REFS.bit_length()
+    real_free, real_ranges = composite._free_bytes, composite._stats_ranges
+    caps = {"queries": max(n // 3, max(per_query)),
+            "references": max(largest_run, max(per_query) // 4)}
+    for budget, cap in caps.items():
+        for route, d in (("csr", idx), ("raw", ref)):
+            taken = []
+
+            def ranges(*args):
+                taken.append(real_ranges(*args))
+                return taken[-1]
+
+            free = cap * composite.STATS_BYTES_PER_KEY + slice_bytes[route]
+            composite._free_bytes = lambda device, free=free: free
+            composite._stats_ranges = ranges
+            try:
+                with host_stats_refused():
+                    wall, rep = run_cli_out("composite", "-r", d, "-q", qry)
+            finally:
+                composite._free_bytes, composite._stats_ranges = real_free, real_ranges
+                seen.update(tables=[], stats=[])
+            if rep != oracle:
+                raise AssertionError(f"the {route} route's report under the forced "
+                                     f"{budget} budget differs from the host oracle")
+            (got,) = taken
+            whole = [lo % (1 << qid_shift) == hi % (1 << qid_shift) == 0
+                     for lo, hi, _ in got]
+            if (len(got) < 2 or sum(k for *_, k in got) != n
+                    or any(k > cap for *_, k in got)
+                    or all(whole) != (budget == "queries")):
+                raise AssertionError(f"the {route} route under the forced {budget} "
+                                     f"budget took the ranges {got}")
+            log(f"[gtdb] {route} route, forced budget of {cap} keys a range "
+                f"({free} B free): the {n} hit keys' statistics in {len(got)} "
+                f"ranges ({budget}); report byte-equal to the host oracle; CLI "
+                f"wall {wall:.3f} s")
 
 
 def check_device_stats(route: str, seen: dict, on: str = "cuda") -> tuple[int, int]:

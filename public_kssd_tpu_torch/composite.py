@@ -17,15 +17,17 @@ Reference: command_composite.c.
 On a torch device the -q join runs in the hand-written kernel
 ``csrc/join.cu`` (``join_kernel``; ``join_torch`` is its plain PyTorch
 version, run for CPU tensors): every reference DB row — a code of the
-stage II inverted index with its postings, or a raw DB code with its
-genome id — is joined against ALL queries' sorted codes at once and
+stage II inverted index with its postings, or a raw DB code, read
+straight onto the device, with its genome id made there — is joined
+against ALL queries' sorted codes at once and
 emits packed int64 hit keys ``qid << qid_shift | rid << 16 | abundance``.
 The query table is built where the join runs (``_query_table_device``:
 one stable ``torch.sort`` of ``code << 31 | qid``), and the keys stay
 there: one ``torch.sort`` groups them by (query, reference), prefix sums
 and gathers give each group's integer aggregates
-(``_hits_to_stats_torch``), and only those rows come back to the host,
-so the report is the same bytes whichever backend computed them.
+(``_hits_to_stats_torch``; one key range after another when the keys
+pass the device's free memory), and only those rows come back to the
+host, so the report is the same bytes whichever backend computed them.
 ``device=None`` is the host numpy oracle; ``_query_table`` and
 ``_hits_to_stats``, the JAX package's host versions, stay as its
 oracles. The host functions shared with public_kssd_tpu.composite are
@@ -316,6 +318,11 @@ def _query_table_device(qc, qi, qa, n_qry: int, device: torch.device):
 # the concatenation (8), the sort's values, indices and scratch (~32), a
 # key's group, boundary flag and prefix sum (~17); rounded up
 STATS_BYTES_PER_KEY = 64
+# keys a part is read in when the statistics are split by key range: a
+# slice's mask, comparison and selected keys (STATS_SLICE_BYTES a key)
+# are the split's only scratch beyond its keys
+STATS_SLICE = 1 << 22
+STATS_SLICE_BYTES = 10
 
 
 def _free_bytes(device: torch.device) -> int | None:
@@ -328,16 +335,100 @@ def _free_bytes(device: torch.device) -> int | None:
             - torch.cuda.memory_allocated(device))
 
 
-def _check_stats_budget(n_keys: int, device: torch.device) -> None:
-    """The keys' sort and reduction must fit the device: there is no host
-    route to fall back to."""
+def _slice_bytes(parts: list[torch.Tensor]) -> int:
+    """The scratch bytes of reading ``parts`` a slice at a time."""
+    return STATS_SLICE_BYTES * min(STATS_SLICE, max(int(p.numel()) for p in parts))
+
+
+def _in_range(keys: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The keys in [lo, hi), by a value mask."""
+    m = keys >= lo
+    m &= keys < hi
+    return keys[m]
+
+
+def _count_keys(parts: list[torch.Tensor], lo: int, hi: int | None, shift: int,
+                length: int) -> np.ndarray:
+    """int64 [length]: the keys of ``parts`` in [lo, hi) (all keys when
+    ``hi`` is None) counted by ``(key - lo) >> shift``, on each part's
+    device, a slice at a time."""
+    out = np.zeros(length, np.int64)
+    for p in parts:
+        for sl in p.split(STATS_SLICE):
+            sl = sl if hi is None else _in_range(sl, lo, hi)
+            out += torch.bincount((sl - lo) >> shift, minlength=length).cpu().numpy()
+    return out
+
+
+def _cuts(counts: np.ndarray, cap: int) -> list[tuple[int, int]]:
+    """Consecutive ranges [a, b) of ``counts``' units, each as long as its
+    sum stays at most ``cap``; a unit above ``cap`` is a range alone."""
+    cum = np.zeros(counts.size + 1, np.int64)
+    np.cumsum(counts, out=cum[1:])
+    out, a = [], 0
+    while a < counts.size:
+        b = max(int(np.searchsorted(cum, cum[a] + cap, "right")) - 1, a + 1)
+        out.append((a, b))
+        a = b
+    return out
+
+
+def _stats_ranges(parts: list[torch.Tensor], n: int, n_qry: int, n_ref: int,
+                  qid_shift: int, device: torch.device,
+                  ) -> list[tuple[int | None, int | None, int]]:
+    """The key ranges (lo, hi, keys) the statistics of ``parts`` (``n``
+    keys) are computed in, ascending: one range of every key, (None,
+    None, n), when they fit the device's free bytes at
+    ``STATS_BYTES_PER_KEY`` a key, or on the host. Else the query ids are
+    cut greedily into ranges whose keys fit beside a slice's scratch
+    (``_slice_bytes``), and a query whose keys alone do not fit is cut by
+    reference ids the same way. A (query, reference) run is the unit of
+    the reduction, so any such cut keeps the output exact; MemoryError
+    when one run does not fit."""
     free = _free_bytes(device)
-    if free is not None and n_keys * STATS_BYTES_PER_KEY > free:
-        raise MemoryError(
-            f"composite hits ({n_keys}) need {n_keys * STATS_BYTES_PER_KEY} "
-            f"bytes of {device} memory for their statistics, {free} are "
-            "free; split the query sketch dir into smaller batches"
-        )
+    if free is None or n * STATS_BYTES_PER_KEY <= free:
+        return [(None, None, n)]
+    cap = (free - _slice_bytes(parts)) // STATS_BYTES_PER_KEY
+    per_q = _count_keys(parts, 0, None, qid_shift, n_qry)
+    out = []
+    for a, b in _cuts(per_q, cap):
+        if per_q[a:b].sum() <= cap:
+            out.append((a << qid_shift, b << qid_shift, int(per_q[a:b].sum())))
+            continue
+        lo = a << qid_shift
+        per_r = _count_keys(parts, lo, lo + (1 << qid_shift), 16, n_ref)
+        for r0, r1 in _cuts(per_r, cap):
+            k = int(per_r[r0:r1].sum())
+            if k > cap:
+                raise MemoryError(
+                    f"composite hits of query {a} on reference {r0} ({k}) "
+                    f"need {k * STATS_BYTES_PER_KEY} bytes of {device} memory "
+                    f"for their statistics, {free} are free; free memory on "
+                    f"{device}, or run composite with --device cpu"
+                )
+            out.append((lo + (r0 << 16), lo + (r1 << 16), k))
+    return [r for r in out if r[2]]
+
+
+def _range_keys(parts: list[torch.Tensor], lo: int | None, hi: int | None,
+                n: int, device: torch.device) -> torch.Tensor:
+    """The ``n`` keys of ``parts`` in [lo, hi) joined on ``device``, in
+    part order; every key when ``lo`` is None. A range's keys are
+    selected from each part a slice at a time by a value mask."""
+    if lo is None:
+        keys = [p.to(device) for p in parts]
+        return keys[0] if len(keys) == 1 else torch.cat(keys)
+    keys = torch.empty(n, dtype=torch.int64, device=device)
+    at = 0
+    for p in parts:
+        for sl in p.split(STATS_SLICE):
+            got = _in_range(sl, lo, hi)
+            keys[at:at + got.numel()] = got
+            at += got.numel()
+    if at != n:
+        raise RuntimeError(f"the key range [{lo}, {hi}) held {at} keys, "
+                           f"{n} were counted")
+    return keys
 
 
 def _segments_torch(keys: torch.Tensor, qid_shift: int) -> torch.Tensor:
@@ -400,22 +491,25 @@ def _hits_to_stats_torch(parts: list[torch.Tensor], n_qry: int, n_ref: int,
     abundance)), reduced to one row of aggregates per (query, reference)
     pair with hits (``_segments_torch``), and only those rows come back
     to the host. CPU tensors run the same torch calls (the plain
-    version). Past the device's memory budget it raises MemoryError."""
+    version). Keys past the device's free memory are sorted and reduced
+    one key range after another (``_stats_ranges``); the rows stay
+    ascending by (query, reference)."""
     if device is None:
         device = parts[0].device if parts else torch.device("cpu")
+    parts = [p for p in parts if p.numel()]
     n = sum(int(p.numel()) for p in parts)
-    _check_stats_budget(n, device)
-    if n == 0:
-        return _stats_by_query(np.zeros((8, 0), np.int64), n_qry, n_ref)
-    with torch.profiler.record_function("stats.sort"):
-        keys = [p.to(device) for p in parts if p.numel()]
-        keys = torch.sort(keys[0] if len(keys) == 1 else torch.cat(keys)).values
-    with torch.profiler.record_function("stats.reduce"):
-        seg = _segments_torch(keys, qid_shift)
-        del keys
-    with torch.profiler.record_function("stats.fetch"):
-        seg = seg.cpu().numpy()
+    segs = [np.zeros((8, 0), np.int64)]
+    if n:
+        for lo, hi, k in _stats_ranges(parts, n, n_qry, n_ref, qid_shift, device):
+            with torch.profiler.record_function("stats.sort"):
+                keys = torch.sort(_range_keys(parts, lo, hi, k, device)).values
+            with torch.profiler.record_function("stats.reduce"):
+                seg = _segments_torch(keys, qid_shift)
+                del keys
+            with torch.profiler.record_function("stats.fetch"):
+                segs.append(seg.cpu().numpy())
     with torch.profiler.record_function("stats.host"):
+        seg = segs[-1] if len(segs) <= 2 else np.concatenate(segs, axis=1)
         return _stats_by_query(seg, n_qry, n_ref)
 
 
@@ -442,26 +536,35 @@ def _csr_stats_device(components, qtables, n_qry: int, n_ref: int,
     return _hits_to_stats_torch(hit_parts, n_qry, n_ref, qid_shift, device)
 
 
+def _genome_ids(ends: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """int32 genome id of each DB position in [c0, c1) on ``ends``'
+    device, where ``ends`` is a component's combco index less its first
+    entry (int64): the genome whose codes hold the position, as
+    ``np.searchsorted(index[1:], positions, "right")`` gives it (a genome
+    without codes owns no position)."""
+    pos = torch.arange(c0, c1, dtype=torch.int64, device=ends.device)
+    return torch.searchsorted(ends, pos, right=True, out_int32=True)
+
+
 def _batched_stats_device(comps, n_qry: int, n_ref: int,
                           device: torch.device) -> list[tuple]:
     """Per-query stats6 via the raw-code join: ``comps`` rows are the
-    host arrays (ref_codes, rid_of, qry_codes, qry_index, qry_abund) of
-    ``_query_stats_host``; each DB code is a row with one posting, its
-    genome id. One chunked DB pass serves all queries; the query tables
-    are built and the hit keys kept on ``device``."""
+    (ref codes, genome ends, query codes, query index, query abundances)
+    of ``_raw_device_components``, the DB's on ``device``; each DB code
+    is a row with one posting, its genome id, made there a join chunk at
+    a time (``_genome_ids``). One chunked DB pass serves all queries; the
+    query tables are built and the hit keys kept on ``device``."""
     qid_shift = 16 + max(int(n_ref).bit_length(), 1)
     _check_key_width(qid_shift, n_qry)
     hit_parts: list[torch.Tensor] = []
-    for ref_codes, rid_of, qc, qi, qa in comps:
+    for codes, ends, qc, qi, qa in comps:
         sq, sqid, sab, qdir = _query_table_device(qc, qi, qa, n_qry, device)
-        for c0 in range(0, ref_codes.size, JOIN_CHUNK):
-            c1 = min(c0 + JOIN_CHUNK, ref_codes.size)
-            u = torch.from_numpy(
-                np.ascontiguousarray(ref_codes[c0:c1], "<u4").view(np.int32)
-            ).to(device)
-            rid = torch.from_numpy(rid_of[c0:c1].astype(np.int32)).to(device)
-            hit_parts.append(
-                join_kernel(u, None, rid, sq, sqid, sab, qid_shift, qdir))
+        for c0 in range(0, codes.numel(), JOIN_CHUNK):
+            c1 = min(c0 + JOIN_CHUNK, codes.numel())
+            with torch.profiler.record_function("raw.ids"):
+                rid = _genome_ids(ends, c0, c1)
+            hit_parts.append(join_kernel(codes[c0:c1], None, rid, sq, sqid, sab,
+                                         qid_shift, qdir))
     return _hits_to_stats_torch(hit_parts, n_qry, n_ref, qid_shift, device)
 
 
@@ -479,8 +582,8 @@ def _check_key_width(qid_shift: int, n_qry: int) -> None:
         )
 
 
-# DB rows per join call: bounds the upload of a raw-code chunk (codes and
-# genome ids, 512 MiB at 2^26 rows)
+# DB rows per join call: bounds the genome ids a raw-code chunk makes on
+# the device (positions and ids, 768 MiB at 2^26 rows)
 JOIN_CHUNK = 1 << 26
 
 
@@ -552,6 +655,50 @@ def _raw_components(ref_dir: str, qry_dir: str, comp_num: int) -> list:
     return comps
 
 
+def _raw_device_components(ref_dir: str, qry_dir: str, comp_num: int,
+                           n_ref: int, device: torch.device) -> list:
+    """``_raw_components`` with the DB on ``device``: per component (ref
+    codes, genome ends, query codes, query index, query abundances). Each
+    component's combco.<c> (``<u4``) and combco.index.<c> (``<u8``) go
+    unconverted into one device buffer (``index.files_on_device``, up to
+    ``index._OPEN_COMPONENTS`` components a buffer: pinned staging, read
+    ahead on threads, uploaded on a side stream), whose views are the
+    codes, as the join's int32 bit view, and the index less its first
+    entry (int64), whose genome ids ``_genome_ids`` makes there. On the
+    host only each index's size and last entry are read, and the query's
+    arrays. Spans: ``raw.upload`` around ``raw.read`` and ``raw.wait``."""
+    from public_kssd_tpu_torch import index as index_mod
+
+    db = []
+    for c0 in range(0, comp_num, index_mod._OPEN_COMPONENTS):
+        paths = []
+        for c in range(c0, min(c0 + index_mod._OPEN_COMPONENTS, comp_num)):
+            paths += [formats.combco_path(ref_dir, c),
+                      formats.combco_index_path(ref_dir, c)]
+            _check_raw_component(*paths[-2:], n_ref)
+        with torch.profiler.record_function("raw.upload"):
+            views = index_mod.files_on_device(paths, device, "raw")
+        db += [(codes.view(torch.int32), offs.view(torch.int64)[1:])
+               for codes, offs in zip(views[::2], views[1::2])]
+    return [(codes, ends, *formats.read_combco(qry_dir, c, with_abund=True))
+            for c, (codes, ends) in enumerate(db)]
+
+
+def _check_raw_component(codes_path: str, index_path: str, n_ref: int) -> None:
+    """A DB component's files hold whole values, its index one offset a
+    genome and one more, and its last offset is its number of codes."""
+    size, isize = os.path.getsize(codes_path), os.path.getsize(index_path)
+    if size % 4 or isize != 8 * (n_ref + 1):
+        raise ValueError(f"{codes_path} ({size} B) and {index_path} ({isize} B) "
+                         f"are not the codes and offsets of {n_ref} genomes")
+    with open(index_path, "rb") as f:
+        f.seek(isize - 8)
+        total = int.from_bytes(f.read(8), "little")
+    if total != size // 4:
+        raise ValueError(f"{index_path} ends at {total} codes, {codes_path} "
+                         f"holds {size // 4}")
+
+
 def species_abundance(
     ref_dir: str,
     qry_dir: str,
@@ -573,8 +720,10 @@ def species_abundance(
     given — the index search uses, so a composite after a search in one
     process uploads it once — or the ref dir carries the CSR sidecar
     (mco.uniq.<c>), which ``index.load_device_index`` reads straight onto
-    the device; else over the raw DB codes. Every backend yields the same integer
-    aggregates, so the report text is the same bytes."""
+    the device; else over the raw DB codes, which
+    ``_raw_device_components`` reads straight onto the device. Every
+    backend yields the same integer aggregates, so the report text is the
+    same bytes."""
     ref_stat = formats.read_co_stat(ref_dir)
     qry_stat = formats.read_co_stat(qry_dir)
     if not qry_stat.koc:
@@ -620,7 +769,8 @@ def species_abundance(
         else:
             route = "raw"
             with timer.stage("load"):
-                comps = _raw_components(ref_dir, qry_dir, ref_stat.comp_num)
+                comps = _raw_device_components(ref_dir, qry_dir,
+                                               ref_stat.comp_num, n_ref, device)
             with timer.stage("join"):
                 stats_all = _batched_stats_device(comps, n_qry, n_ref, device)
     lines: list[str] = []

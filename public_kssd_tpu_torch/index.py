@@ -243,21 +243,23 @@ def _read_pieces(buf: np.ndarray, pieces: list[tuple[int, int, int, int]]) -> No
 
 
 def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
-                  st: staging.Staging, pool: ThreadPoolExecutor, depth: int) -> None:
+                  st: staging.Staging, pool: ThreadPoolExecutor, depth: int,
+                  spans: str = "index") -> None:
     """The bytes of ``files`` (descriptor, size, offset in ``out``,
     ascending) into ``out`` (uint8 on the device): ``out`` is cut into
     pieces of a staging buffer's size, each read by ``pool`` from the
     files it covers into the next staging buffer, up to ``depth`` pieces
     at a time, and uploaded into its place once read, in order. On return
     every upload is queued and torch's current stream waits for them; a
-    buffer is read into again only once its last upload has ended."""
+    buffer is read into again only once its last upload has ended. The
+    waits are the spans ``<spans>.read`` and ``<spans>.wait``."""
     span = torch.profiler.record_function
     block = st.host[0].size
     pending: collections.deque = collections.deque()
 
     def upload_oldest() -> None:
         read, slot, dest = pending.popleft()
-        with span("index.read"):
+        with span(f"{spans}.read"):
             read.result()
         st.upload(slot, dest.numel(), out=dest)
 
@@ -276,7 +278,7 @@ def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
                 fi += 1
             if len(pending) >= depth:
                 upload_oldest()
-            with span("index.wait"):
+            with span(f"{spans}.wait"):
                 buf = st.writable(slot)
             pending.append((pool.submit(_read_pieces, buf, pieces), slot, out[c0:c1]))
             slot = (slot + 1) % st.count
@@ -286,6 +288,33 @@ def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
         # no read may still use a buffer or a descriptor once they are given
         # back
         wait([read for read, *_ in pending])
+
+
+def files_on_device(paths: list[str], device: torch.device,
+                    spans: str) -> list[torch.Tensor]:
+    """The bytes of each file of ``paths`` on ``device``: uint8 views of
+    one device buffer, each file at a multiple of ``_ALIGN``, read as
+    ``load_device_index`` reads an index (``_upload_files`` on
+    ``INDEX_READ_THREADS`` threads through the same staging set), so a
+    file larger than the staging buffers streams through them and no
+    host copy of it is made. On a card a failed pin, stream or copy
+    raises. Spans: ``<spans>.read`` and ``<spans>.wait``."""
+    threads = INDEX_READ_THREADS
+    fds: list[int] = []
+    try:
+        files, end = [], 0
+        for path in paths:
+            fds.append(os.open(path, os.O_RDONLY))
+            size = os.fstat(fds[-1]).st_size
+            files.append((fds[-1], size, end))
+            end += -(-size // _ALIGN) * _ALIGN
+        buf = torch.empty(end, dtype=torch.uint8, device=device)
+        with staging.borrow(device, INDEX_BLOCK, threads + 2) as st:
+            _upload_files(files, buf, st, _readers(threads), threads, spans)
+    finally:
+        for fd in fds:
+            os.close(fd)
+    return [buf[at:at + size] for _, size, at in files]
 
 
 # components whose files a load holds open at once (three files each)

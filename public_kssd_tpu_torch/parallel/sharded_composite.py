@@ -20,7 +20,8 @@ axis of a 1 x S mesh:
     ``parallel.all_gather_objects`` and uploaded again;
   * per-(query, ref) count/sum/median/percentile statistics run on the
     first local slot's device (composite._hits_to_stats_torch: one sort
-    of the keys there, only the per-(query, ref) aggregates come back),
+    of the keys there, or one a key range past its free memory; only the
+    per-(query, ref) aggregates come back),
     so the report text is integer-exact vs every other backend by
     construction.
 """

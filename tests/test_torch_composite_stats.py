@@ -193,29 +193,109 @@ def test_hits_to_stats_torch_moves_parts_to_its_device(monkeypatch):
             np.testing.assert_array_equal(a, b)
 
 
+def _spy_ranges(monkeypatch):
+    """Record every ``_stats_ranges`` call: (parts, qid_shift, ranges)."""
+    seen = []
+    real = composite._stats_ranges
+
+    def spy(parts, n, n_qry, n_ref, qid_shift, device):
+        out = real(parts, n, n_qry, n_ref, qid_shift, device)
+        seen.append((parts, qid_shift, out))
+        return out
+
+    monkeypatch.setattr(composite, "_stats_ranges", spy)
+    return seen
+
+
+def _free_for(cap, parts):
+    """The free bytes that leave room for ``cap`` keys a range."""
+    return cap * composite.STATS_BYTES_PER_KEY + composite._slice_bytes(parts)
+
+
 @pytest.mark.parametrize("free", [0, 64 * 1000 - 1])
 def test_stats_budget_raises(monkeypatch, free):
     """Keys whose sort and reduction would pass the device's free memory
-    raise MemoryError with the advice of the join's hit limit; at the
-    budget they pass. The host has no budget."""
+    are split by key range: 1000 keys of one query on 1000 references,
+    one byte short of their budget, are cut by reference into two ranges
+    whose statistics equal one pass's. With no free bytes a single
+    (query, reference) run cannot fit: MemoryError. At the budget the
+    keys take one range. The host has no budget."""
     assert composite._free_bytes(CPU) is None
     keys = torch.arange(1000, dtype=torch.int64) << 16
+    want = jax_composite._hits_to_stats([keys.numpy()], 1, 1000, 26)
+    seen = _spy_ranges(monkeypatch)
     monkeypatch.setattr(composite, "_free_bytes", lambda device: free)
-    with pytest.raises(MemoryError, match="split the query sketch dir into "
-                                          "smaller batches"):
-        composite._hits_to_stats_torch([keys[:400], keys[400:]], 1, 1000, 26)
+    if free == 0:
+        with pytest.raises(MemoryError, match="query 0 on reference 0 .* free "
+                                              "memory on cpu, or run composite "
+                                              "with --device cpu"):
+            composite._hits_to_stats_torch([keys[:400], keys[400:]], 1, 1000, 26)
+    else:
+        got = composite._hits_to_stats_torch([keys[:400], keys[400:]], 1, 1000, 26)
+        for a, b in zip(got[0], want[0], strict=True):
+            np.testing.assert_array_equal(a, b)
+        ranges = seen[-1][2]
+        assert len(ranges) == 2 and sum(k for *_, k in ranges) == 1000
     monkeypatch.setattr(composite, "_free_bytes",
                         lambda device: composite.STATS_BYTES_PER_KEY * 1000)
     got = composite._hits_to_stats_torch([keys], 1, 1000, 26)
-    assert (got[0][0] == 1).all()
+    assert (got[0][0] == 1).all() and seen[-1][2] == [(None, None, 1000)]
+
+
+@pytest.mark.parametrize("cap", ["all", "half", "largest query",
+                                 "within one query", "largest run"])
+@pytest.mark.parametrize("slice_keys", [7, 1 << 22])
+def test_hits_to_stats_torch_split_matches_jax(monkeypatch, cap, slice_keys):
+    """Under a budget of ``cap`` keys a range, read 7 keys or a whole
+    part at a time, the statistics of keys split over five parts equal
+    the JAX package's host statistics; the ranges ascend, hold every key
+    once and none holds more than ``cap``."""
+    n_ref, n_qry = 1000, 5
+    shift = 16 + n_ref.bit_length()
+    keys = _keys(9, n_ref, n_qry, shift)
+    chunks = _split(keys, 5, np.random.default_rng(9))
+    parts = [torch.from_numpy(c.copy()) for c in chunks]
+    per_q = np.bincount(keys >> shift, minlength=n_qry)
+    runs = np.unique(keys >> 16, return_counts=True)[1]
+    k = {"all": keys.size, "half": keys.size // 2, "largest query": per_q.max(),
+         "within one query": per_q.max() - 1, "largest run": runs.max()}[cap]
+    monkeypatch.setattr(composite, "STATS_SLICE", slice_keys)
+    monkeypatch.setattr(composite, "_free_bytes",
+                        lambda device: _free_for(int(k), parts))
+    seen = _spy_ranges(monkeypatch)
+    want = jax_composite._hits_to_stats(chunks, n_qry, n_ref, shift)
+    got = composite._hits_to_stats_torch(parts, n_qry, n_ref, shift)
+    for g, w in zip(got, want, strict=True):
+        for a, b in zip(g, w, strict=True):
+            np.testing.assert_array_equal(a, b)
+    ranges = seen[0][2]
+    assert sum(n for *_, n in ranges) == keys.size
+    if cap == "all":
+        assert ranges == [(None, None, keys.size)]
+        return
+    assert len(ranges) >= 2 and all(n <= k for *_, n in ranges)
+    bounds = [b for lo, hi, _ in ranges for b in (lo, hi)]
+    assert bounds == sorted(bounds)
+    by_ref = any(lo % (1 << shift) or hi % (1 << shift) for lo, hi, _ in ranges)
+    assert by_ref == (cap in ("within one query", "largest run"))
 
 
 def test_stats_budget_reaches_the_report(tmp_path, monkeypatch):
-    """species_abundance on a device route raises the budget's
-    MemoryError; there is no host route to fall back to."""
+    """species_abundance on a device route under a budget that splits its
+    keys into ranges gives the JAX package's host report; with no free
+    bytes it raises MemoryError: there is no host route to fall back
+    to."""
     ref_dir, qry_dir, *_ = _mk_db(tmp_path, n_ref=30, sk=64, n_qry=2, seed=4)
+    want = jax_composite.species_abundance(ref_dir, qry_dir, device=None)
+    seen = _spy_ranges(monkeypatch)
+    assert composite.species_abundance(ref_dir, qry_dir, device=CPU) == want
+    parts, _, [(_, _, n)] = seen[0]
+    monkeypatch.setattr(composite, "_free_bytes",
+                        lambda device: _free_for(n // 3, parts))
+    assert composite.species_abundance(ref_dir, qry_dir, device=CPU) == want
+    assert len(seen[1][2]) >= 3 and want
     monkeypatch.setattr(composite, "_free_bytes", lambda device: 0)
-    with pytest.raises(MemoryError, match="smaller batches"):
+    with pytest.raises(MemoryError, match="run composite with --device cpu"):
         composite.species_abundance(ref_dir, qry_dir, device=CPU)
 
 
@@ -248,7 +328,8 @@ def _refuse_host_versions(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a device route reached a host version")
 
-    for name in ("_hits_to_stats", "_query_table", "_segment_stats_np"):
+    for name in ("_hits_to_stats", "_query_table", "_segment_stats_np",
+                 "_raw_components"):
         monkeypatch.setattr(composite, name, refuse)
 
 
@@ -260,7 +341,8 @@ ROUTES = ["raw", "csr", "mesh [cpu]*4"]
 def test_device_routes_match_jax_host_oracle(tmp_path, monkeypatch, route, name):
     """The report and the -b .abv files of each device route equal the
     JAX package's host oracle (device=None) byte for byte, and no device
-    route reaches _hits_to_stats, _query_table or _segment_stats_np."""
+    route reaches _hits_to_stats, _query_table, _segment_stats_np or
+    _raw_components (the host's genome ids of the DB codes)."""
     ref_dir, qry_dir = _db(tmp_path, name, route)
     want = jax_composite.species_abundance(ref_dir, qry_dir, device=None)
     out_j, out_t = str(tmp_path / "abv_j"), str(tmp_path / "abv_t")
@@ -321,3 +403,53 @@ def test_device_routes_multi_component(tmp_path, monkeypatch, route):
     _refuse_host_versions(monkeypatch)
     assert want.count("\n") >= n_qry
     assert _report(route, ref_dir, qry_dir) == want
+
+
+BUDGETS = ["one range", "two ranges", "a query a range", "within one query",
+           "below one run"]
+
+
+@pytest.mark.parametrize("budget", BUDGETS)
+@pytest.mark.parametrize("route", ROUTES)
+def test_forced_budget_routes_match_jax_host_oracle(tmp_path, monkeypatch,
+                                                    route, budget):
+    """Each device route's report, under a budget (``_free_bytes``
+    patched, parts read 64 keys at a time) that takes the keys in one
+    range, in two ranges of queries, a query a range, or cuts the largest
+    query by reference, equals the JAX package's host oracle byte for
+    byte; below the largest (query, reference) run it raises
+    MemoryError."""
+    ref_dir, qry_dir = _db(tmp_path, "dense hits", route)
+    want = jax_composite.species_abundance(ref_dir, qry_dir, device=None)
+    monkeypatch.setattr(composite, "STATS_SLICE", 64)
+    seen = _spy_ranges(monkeypatch)
+    assert _report(route, ref_dir, qry_dir) == want
+    parts, shift, [(_, _, n)] = seen.pop()
+    keys = np.concatenate([p.numpy() for p in parts])
+    per_q = np.bincount(keys >> shift)
+    runs = np.unique(keys >> 16, return_counts=True)[1]
+    cum = np.cumsum(per_q)[:-1]
+    cap = {"one range": n, "two ranges": np.maximum(cum, n - cum).min(),
+           "a query a range": per_q.max(), "within one query": per_q.max() - 1,
+           "below one run": runs.max() - 1}[budget]
+    assert per_q.size == 3 and runs.max() < per_q.min() < per_q.max() < n // 2
+    monkeypatch.setattr(composite, "_free_bytes",
+                        lambda device: _free_for(int(cap), parts))
+    _refuse_host_versions(monkeypatch)
+    if budget == "below one run":
+        with pytest.raises(MemoryError, match="free memory on cpu"):
+            _report(route, ref_dir, qry_dir)
+        return
+    assert _report(route, ref_dir, qry_dir) == want
+    ranges = seen.pop()[2]
+    assert sum(k for *_, k in ranges) == n and all(k <= cap for *_, k in ranges)
+    whole = [lo is not None and lo % (1 << shift) == hi % (1 << shift) == 0
+             for lo, hi, _ in ranges]
+    if budget == "one range":
+        assert ranges == [(None, None, n)]
+    elif budget == "two ranges":
+        assert len(ranges) == 2 and all(whole)
+    elif budget == "a query a range":
+        assert [hi - lo for lo, hi, _ in ranges] == [1 << shift] * 3
+    else:
+        assert len(ranges) > 3 and not all(whole)

@@ -102,8 +102,12 @@ DIFFERING = {
     # (species_abundance, _csr_stats_device) reads its index straight
     # onto the device (index.load_device_index) and takes DeviceIndex
     # components; the device routes build the query table and reduce the
-    # hit keys on the device (_query_table_device, _hits_to_stats_torch),
-    # so _query_table and _hits_to_stats stay the host oracles
+    # hit keys on the device (_query_table_device, _hits_to_stats_torch,
+    # one key range after another past the device's free memory), so
+    # _query_table and _hits_to_stats stay the host oracles; the raw
+    # route (species_abundance, _batched_stats_device) reads the DB's
+    # combco files straight onto the device (_raw_device_components) and
+    # makes each join chunk's genome ids there (_genome_ids)
     "composite": {
         "DEVICE_JOIN_THRESHOLD", "_batched_join_impl", "_BATCH_JOIN",
         "_batched_join_fn", "_csr_join_impl", "_CSR_JOIN", "_csr_join_fn",

@@ -25,8 +25,16 @@ stage -> span -> mean seconds a call; the stage's own name holds the
 rest of the stage). Every report of every call is checked against the
 oracle's. The spans:
 
-* ``read``: ``formats.read_combco`` (the query sketch's files; on the
-  raw route the DB's too, in ``load``);
+* ``read``: ``formats.read_combco`` (the query sketch's files; on a
+  parent's raw route the DB's too, in ``load``, whose rest is then the
+  host's genome ids, ``rid_of``);
+* ``raw.upload``, ``raw.read``, ``raw.wait``: the raw route's DB read
+  straight onto the device (``_raw_device_components``, in ``load``):
+  the uploads and the loop's own time, waiting for a read of the DB's
+  files into a staging buffer, and a staging buffer waiting for its
+  upload;
+* ``raw.ids``: the raw route's genome ids made on the device a join
+  chunk at a time (``_genome_ids``, in ``join``);
 * ``table.sort``: the query table's sort and keep-first filter (a
   parent's host ``_query_table``; ``_query_table_device``'s span);
 * ``table.upload``: the query table's upload (a parent's
