@@ -135,12 +135,17 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               splits the statistics into ranges of whole queries and one
               that cuts the largest query by reference: reports
               byte-equal to the host oracle, the ranges logged
-  8. sharded main path (the mesh search and composite on one card):
+  8. sharded main path (the mesh search and composite on one card; the
+     shards, query keys and folded DB built on the card, the host index
+     read refused in 8a-8c):
      8a. sharded_search_counts on phase 5's 1,000 x 10k DB over the
               meshes [cuda:0] 1x1 and [cuda:0]*4 at 1x4 and 2x2, by the
               genome and the code strategy, equal to the single-device
               counts; and the --koc-out counts of phase 7a's samples over
-              1x4 and 2x2, equal to the single-device count_shared_koc
+              1x4 and 2x2, equal to the single-device count_shared_koc;
+              each wall logged with the shards' build apart from the
+              count, and the card's peak allocation against the shards'
+              bytes; 1x4 again with the index read in 16 MiB groups
      8b. kssd_torch dist --mesh 1x1, both strategies, on phase 6's L3K12
               DB (256 components folded into one key space):
               distance.out byte-equal to phase 6's plain run
@@ -341,6 +346,25 @@ def host_stats_refused():
     finally:
         for n, fn in zip(names, saved):
             setattr(composite, n, fn)
+
+
+@contextlib.contextmanager
+def host_fold_refused():
+    """The port's host index read (index.load_sparse_index) raises while
+    this is open: a mesh route must read the index and the sketches onto
+    the card, fold them and build its shards there (the port has no
+    numpy construction of the shards to fall back to)."""
+    from public_kssd_tpu_torch import index
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a mesh route read the index on the host")
+
+    saved = index.load_sparse_index
+    index.load_sparse_index = refuse
+    try:
+        yield
+    finally:
+        index.load_sparse_index = saved
 
 
 def same_bytes(a: str, b: str) -> int:
@@ -1824,47 +1848,88 @@ def check_device_stats(route: str, seen: dict, on: str = "cuda") -> tuple[int, i
 
 def phase_sharded_counts(device, work: str) -> None:
     """8a: sharded_search_counts over one-card meshes, both strategies,
-    against the single-device counts, and the --koc-out counts."""
+    against the single-device counts, and the --koc-out counts; the
+    shards built on the card from the index directory (the host index
+    read refused), their build timed apart from the count, with the card's
+    peak memory against the shards' bytes."""
     import torch
 
     from public_kssd_tpu_torch import formats, index, parallel, search
     from public_kssd_tpu_torch.parallel import sharded_search
 
+    builds = []
+    real = sharded_search.device_shards
+
+    def timed_shards(*a, **k):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        db = real(*a, **k)
+        torch.cuda.synchronize()
+        held = sum(t.numel() * t.element_size() for ix in db.index.values()
+                   for t in (ix.uniq, ix.offsets, ix.gids, ix.dir))
+        builds.append((time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() - base, held))
+        return db
+
+    # (dp, ref, the bytes of index files a build group reads; None: the
+    # default); the 16 MiB groups show the card's peak follow the bound
     cases = (
-        ("sref", "sqry", False, ((1, 1), (1, 4), (2, 2))),
-        ("ref", "meta/koc", True, ((1, 4), (2, 2))),
+        ("sref", "sqry", False, ((1, 1, None), (1, 4, None), (2, 2, None),
+                                 (1, 4, 16 << 20))),
+        ("ref", "meta/koc", True, ((1, 4, None), (2, 2, None))),
     )
     for ref, qry, koc, shapes in cases:
         ref, qry = f"{work}/{ref}", f"{work}/{qry}"
-        _, comps = index.load_sparse_index(ref)
         n_qry = formats.read_co_stat(qry).infile_num
+        t0 = time.perf_counter()
+        _, comps = index.load_device_index(ref, device)
         n_ref = comps[0].n_genomes
         koc_want = np.zeros((n_qry, n_ref), np.uint64) if koc else None
-        t0 = time.perf_counter()
         want = search.compute_shared_counts(qry, comps, n_qry, device,
                                             koc_out=koc_want)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
+        del comps
         if not want.sum() or (koc and not koc_want.sum()):
             raise AssertionError(f"{qry} shares no codes with {ref}")
         walls = []
-        for dp, nref in shapes:
+        for dp, nref, group in shapes:
             mesh = parallel.Mesh(dp, nref, (device,) * (dp * nref))
             for strategy in ("genome", "code"):
                 koc_got = np.zeros((n_qry, n_ref), np.uint64) if koc else None
-                t0 = time.perf_counter()
-                got = sharded_search.sharded_search_counts(
-                    qry, comps, 0, mesh, koc_out=koc_got, strategy=strategy,
-                )
-                walls.append(f"{dp}x{nref} {strategy} {time.perf_counter() - t0:.3f} s")
+                builds.clear()
+                sharded_search.device_shards = timed_shards
+                default_group = index.MESH_GROUP_BYTES
+                index.MESH_GROUP_BYTES = group or default_group
+                try:
+                    with host_fold_refused():
+                        t0 = time.perf_counter()
+                        got = sharded_search.sharded_search_counts(
+                            qry, ref, 0, mesh, koc_out=koc_got, strategy=strategy,
+                        )
+                        wall = time.perf_counter() - t0
+                finally:
+                    sharded_search.device_shards = real
+                    index.MESH_GROUP_BYTES = default_group
+                (build, peak, held), = builds
+                label = f" in {group >> 20} MiB groups" if group else ""
+                walls.append(f"{dp}x{nref} {strategy}{label} {wall:.3f} s (shards "
+                             f"{build:.3f}, count {wall - build:.3f}; peak "
+                             f"{peak / 2**20:.1f} MiB for {held / 2**20:.1f} MiB "
+                             f"of shards)")
                 if not np.array_equal(got, want) or (
                         koc and not np.array_equal(koc_got, koc_want)):
                     raise AssertionError(f"sharded counts {dp}x{nref} {strategy} "
                                          f"of {qry} != the single-device counts")
         log(f"[sharded] {n_qry} x {n_ref}{' --koc-out' if koc else ''}: "
             f"sharded_search_counts equal to the single-device counts on every "
-            f"mesh; walls (host clock, incl. the fold and the shard build): "
-            f"{'; '.join(walls)}; single device {t_plain:.3f} s")
+            f"mesh, shards built on the card from the index directory (the host "
+            f"index read refused); walls (host clock; the shards' build on the card, "
+            f"the count with its queries and fetch, the card's peak allocation "
+            f"above what was held before): {'; '.join(walls)}; single device "
+            f"(index load and count) {t_plain:.3f} s")
 
 
 def phase_sharded_cli(work: str, wide_stages: dict[str, float],
@@ -1880,9 +1945,10 @@ def phase_sharded_cli(work: str, wide_stages: dict[str, float],
     utils.log.addHandler(stages)
     try:
         for strategy in ("genome", "code"):
-            t = run_cli("dist", "-r", f"{wide}/ref", "-o", f"{wide}/out_{strategy}",
-                        "--mesh", "1x1", "--shard-strategy", strategy,
-                        f"{wide}/qry")
+            with host_fold_refused():
+                t = run_cli("dist", "-r", f"{wide}/ref", "-o",
+                            f"{wide}/out_{strategy}", "--mesh", "1x1",
+                            "--shard-strategy", strategy, f"{wide}/qry")
             size = same_bytes(f"{wide}/out/distance.out",
                               f"{wide}/out_{strategy}/distance.out")
             log(f"[sharded] L3K12 dist --mesh 1x1 --shard-strategy {strategy}: "
@@ -1895,7 +1961,7 @@ def phase_sharded_cli(work: str, wide_stages: dict[str, float],
 
     gtdb = f"{work}/gtdb"
     dev = resolve_device("cuda")
-    with host_stats_refused():
+    with host_stats_refused(), host_fold_refused():
         t, rep = run_cli_out("composite", "-r", f"{gtdb}/ref", "-q", f"{gtdb}/qry",
                              "--mesh", "1")
         t0 = time.perf_counter()
@@ -1907,7 +1973,8 @@ def phase_sharded_cli(work: str, wide_stages: dict[str, float],
         raise AssertionError("composite --mesh report differs from the host oracle")
     log(f"[sharded] GTDB shape composite --mesh 1: report ({len(rep.splitlines())} "
         f"lines) byte-equal to the host oracle, CLI wall {t:.3f} s; the same over "
-        f"[cuda:0]*4 {t4:.3f} s; neither reached the host statistics")
+        f"[cuda:0]*4 {t4:.3f} s; neither reached the host statistics or the "
+        f"host index read")
 
     files = sorted(os.listdir(f"{work}/refs"))
     half = -(-len(files) // 2)

@@ -385,8 +385,9 @@ def _card_work(args, steps) -> tuple[str, ...] | None:
         elif step == "index":
             card = card or args.device_index
         elif step == "search" and not (args.cpu_count or args.skf):
-            # the mesh loads its index on the host
-            work += ["count"] if args.mesh else ["count", "index"]
+            # one card and the mesh's slots both read the index through
+            # the loader's staging
+            work += ["count", "index"]
             card = True
     return tuple(work) if card else None
 

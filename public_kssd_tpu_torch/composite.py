@@ -660,43 +660,25 @@ def _raw_device_components(ref_dir: str, qry_dir: str, comp_num: int,
     """``_raw_components`` with the DB on ``device``: per component (ref
     codes, genome ends, query codes, query index, query abundances). Each
     component's combco.<c> (``<u4``) and combco.index.<c> (``<u8``) go
-    unconverted into one device buffer (``index.files_on_device``, up to
-    ``index._OPEN_COMPONENTS`` components a buffer: pinned staging, read
-    ahead on threads, uploaded on a side stream), whose views are the
-    codes, as the join's int32 bit view, and the index less its first
-    entry (int64), whose genome ids ``_genome_ids`` makes there. On the
-    host only each index's size and last entry are read, and the query's
-    arrays. Spans: ``raw.upload`` around ``raw.read`` and ``raw.wait``."""
+    unconverted onto the device (``index.combco_on_device``: checked on
+    the host first, up to ``index._OPEN_COMPONENTS`` components a
+    buffer, pinned staging, read ahead on threads, uploaded on a side
+    stream), whose views are the codes, as the join's int32 bit view, and
+    the index less its first entry (int64), whose genome ids
+    ``_genome_ids`` makes there. On the host only each index's size and last entry are read,
+    and the query's arrays. Spans: ``raw.upload`` around ``raw.read`` and
+    ``raw.wait``."""
     from public_kssd_tpu_torch import index as index_mod
 
-    db = []
-    for c0 in range(0, comp_num, index_mod._OPEN_COMPONENTS):
-        paths = []
-        for c in range(c0, min(c0 + index_mod._OPEN_COMPONENTS, comp_num)):
-            paths += [formats.combco_path(ref_dir, c),
-                      formats.combco_index_path(ref_dir, c)]
-            _check_raw_component(*paths[-2:], n_ref)
-        with torch.profiler.record_function("raw.upload"):
-            views = index_mod.files_on_device(paths, device, "raw")
-        db += [(codes.view(torch.int32), offs.view(torch.int64)[1:])
-               for codes, offs in zip(views[::2], views[1::2])]
-    return [(codes, ends, *formats.read_combco(qry_dir, c, with_abund=True))
-            for c, (codes, ends) in enumerate(db)]
-
-
-def _check_raw_component(codes_path: str, index_path: str, n_ref: int) -> None:
-    """A DB component's files hold whole values, its index one offset a
-    genome and one more, and its last offset is its number of codes."""
-    size, isize = os.path.getsize(codes_path), os.path.getsize(index_path)
-    if size % 4 or isize != 8 * (n_ref + 1):
-        raise ValueError(f"{codes_path} ({size} B) and {index_path} ({isize} B) "
-                         f"are not the codes and offsets of {n_ref} genomes")
-    with open(index_path, "rb") as f:
-        f.seek(isize - 8)
-        total = int.from_bytes(f.read(8), "little")
-    if total != size // 4:
-        raise ValueError(f"{index_path} ends at {total} codes, {codes_path} "
-                         f"holds {size // 4}")
+    comps = []
+    parts = [(c, 0, None) for c in range(comp_num)]
+    for g in index_mod.combco_on_device(ref_dir, parts, n_ref, device, "raw"):
+        at = 0
+        for i, (c, n) in enumerate(zip(g.comps, g.sizes)):
+            comps.append((g.codes[at:at + n], g.index[i, 1:],
+                          *formats.read_combco(qry_dir, c, with_abund=True)))
+            at += n
+    return comps
 
 
 def species_abundance(

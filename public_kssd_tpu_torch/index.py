@@ -11,7 +11,9 @@ bit-identical to the reference's insertion order), and the in-memory /
 on-device representation is CSR over the *occupied* rows only
 (unique codes + offsets + postings). The dense on-disk format is kept as
 an export for byte-compatibility; the sparse form is what search loads:
-on one device straight onto it (``load_device_index``), elsewhere into
+on one device straight onto it (``load_device_index``), onto each slot
+of a mesh a bounded group of row ranges at a time (``CsrSlices``),
+elsewhere into
 host arrays (``load_sparse_index``).
 """
 
@@ -242,14 +244,15 @@ def _read_pieces(buf: np.ndarray, pieces: list[tuple[int, int, int, int]]) -> No
         _pread_full(fd, buf[to:to + n], at)
 
 
-def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
+def _upload_files(files: list[tuple[int, int, int, int]], out: torch.Tensor,
                   st: staging.Staging, pool: ThreadPoolExecutor, depth: int,
                   spans: str = "index") -> None:
-    """The bytes of ``files`` (descriptor, size, offset in ``out``,
-    ascending) into ``out`` (uint8 on the device): ``out`` is cut into
-    pieces of a staging buffer's size, each read by ``pool`` from the
-    files it covers into the next staging buffer, up to ``depth`` pieces
-    at a time, and uploaded into its place once read, in order. On return
+    """The bytes of ``files`` (descriptor, first byte in the file, size,
+    offset in ``out``, ascending) into ``out`` (uint8 on the device):
+    ``out`` is cut into pieces of a staging buffer's size, each read by
+    ``pool`` from the files it covers into the next staging buffer, up to
+    ``depth`` pieces at a time, and uploaded into its place once read, in
+    order. On return
     every upload is queued and torch's current stream waits for them; a
     buffer is read into again only once its last upload has ended. The
     waits are the spans ``<spans>.read`` and ``<spans>.wait``."""
@@ -268,11 +271,11 @@ def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
         for c0 in range(0, out.numel(), block):
             c1 = min(c0 + block, out.numel())
             pieces = []
-            while fi < len(files) and files[fi][2] < c1:
-                fd, size, at = files[fi]
+            while fi < len(files) and files[fi][3] < c1:
+                fd, start, size, at = files[fi]
                 lo, hi = max(at, c0), min(at + size, c1)
                 if hi > lo:
-                    pieces.append((fd, lo - at, hi - lo, lo - c0))
+                    pieces.append((fd, start + lo - at, hi - lo, lo - c0))
                 if at + size > c1:
                     break
                 fi += 1
@@ -290,45 +293,168 @@ def _upload_files(files: list[tuple[int, int, int]], out: torch.Tensor,
         wait([read for read, *_ in pending])
 
 
-def files_on_device(paths: list[str], device: torch.device,
-                    spans: str) -> list[torch.Tensor]:
-    """The bytes of each file of ``paths`` on ``device``: uint8 views of
-    one device buffer, each file at a multiple of ``_ALIGN``, read as
-    ``load_device_index`` reads an index (``_upload_files`` on
-    ``INDEX_READ_THREADS`` threads through the same staging set), so a
-    file larger than the staging buffers streams through them and no
-    host copy of it is made. On a card a failed pin, stream or copy
-    raises. Spans: ``<spans>.read`` and ``<spans>.wait``."""
+def _runs_on_device(runs: list[list], device: torch.device,
+                    spans: str) -> tuple[list[torch.Tensor], list[list[int]]]:
+    """The bytes of each run of file pieces on ``device``: one uint8 view
+    a run of one device buffer, each run at a multiple of ``_ALIGN`` and
+    its pieces back to back, and the size of each piece. A piece is a path (the whole file) or
+    ``(path, start, size)``: ``size`` bytes of the file from byte
+    ``start`` on (a file that ends before raises as it is read); an open
+    descriptor in place of the path is read and left open. Read as
+    ``load_device_index`` reads an index
+    (``_upload_files`` on ``INDEX_READ_THREADS`` threads through the same
+    staging set), so a file larger than the staging buffers streams
+    through them and no host copy of it is made. On a card a failed pin,
+    stream or copy raises. Spans: ``<spans>.read`` and ``<spans>.wait``."""
     threads = INDEX_READ_THREADS
     fds: list[int] = []
     try:
-        files, end = [], 0
-        for path in paths:
-            fds.append(os.open(path, os.O_RDONLY))
-            size = os.fstat(fds[-1]).st_size
-            files.append((fds[-1], size, end))
-            end += -(-size // _ALIGN) * _ALIGN
+        files, bounds, sizes, end = [], [], [], 0
+        for run in runs:
+            end = first = -(-end // _ALIGN) * _ALIGN
+            sizes.append([])
+            for entry in run:
+                path, start, size = (entry, 0, None) if isinstance(entry, str) else entry
+                if isinstance(path, int):
+                    fd = path
+                else:
+                    fd = os.open(path, os.O_RDONLY)
+                    fds.append(fd)
+                if size is None:
+                    size = os.fstat(fd).st_size
+                sizes[-1].append(size)
+                files.append((fd, start, size, end))
+                end += size
+            bounds.append((first, end))
         buf = torch.empty(end, dtype=torch.uint8, device=device)
         with staging.borrow(device, INDEX_BLOCK, threads + 2) as st:
             _upload_files(files, buf, st, _readers(threads), threads, spans)
     finally:
         for fd in fds:
             os.close(fd)
-    return [buf[at:at + size] for _, size, at in files]
+    return [buf[a:b] for a, b in bounds], sizes
 
 
 # components whose files a load holds open at once (three files each)
 _OPEN_COMPONENTS = 64
 
 
+def _check_combco(sketch_dir: str, c: int, n_sketches: int, size: int,
+                  isize: int, asize: int | None) -> int:
+    """Component ``c`` of a sketch directory by its files' sizes (its
+    codes', index's and, unless None, abundances'): whole codes, one
+    offset a sketch and one more, one abundance a code. Returns its
+    number of codes."""
+    codes_path = formats.combco_path(sketch_dir, c)
+    index_path = formats.combco_index_path(sketch_dir, c)
+    if size % 4 or isize != 8 * (n_sketches + 1):
+        raise ValueError(f"{codes_path} ({size} B) and {index_path} ({isize} B) "
+                         f"are not the codes and offsets of {n_sketches} "
+                         f"sketches (component {c})")
+    if asize is not None and asize != size // 2:
+        raise ValueError(f"{formats.abund_path(sketch_dir, c)} holds {asize} B, "
+                         f"not the abundances of {size // 4} codes (component {c})")
+    return size // 4
+
+
+def check_combco(sketch_dir: str, c: int, n_sketches: int) -> int:
+    """``_check_combco`` of component ``c``'s codes and index, their sizes
+    read on the host: its number of codes. That the index's last offset
+    is that number is checked where the index is read
+    (``combco_on_device``)."""
+    return _check_combco(sketch_dir, c, n_sketches,
+                         os.path.getsize(formats.combco_path(sketch_dir, c)),
+                         os.path.getsize(formats.combco_index_path(sketch_dir, c)),
+                         None)
+
+
+class CombcoGroup(collections.namedtuple(
+        "CombcoGroup", "comps sizes codes index abund n_sketches")):
+    """A group of ``combco_on_device``: its parts' components and numbers
+    of codes (host lists), their codes back to back (int32 bit views),
+    their whole indexes [parts, n_sketches + 1] (int64) and, when read,
+    their abundances back to back (int16 bit views; else None)."""
+
+    def part_of(self) -> torch.Tensor:
+        """int64 [codes]: the part (0, 1, ...) of each code."""
+        dev = self.codes.device
+        return torch.repeat_interleave(
+            torch.arange(len(self.sizes), device=dev),
+            torch.tensor(self.sizes, dtype=torch.int64).to(dev),
+            output_size=sum(self.sizes))
+
+    def sketch_ids(self, part: torch.Tensor) -> torch.Tensor:
+        """int32 [codes]: the sketch each code belongs to, of a group of
+        whole components whose code's part is ``part`` (``part_of``): one
+        search of every code's position among every part's sketch ends,
+        each part's moved to where its codes start in the group (so that
+        they ascend from part to part), less n_sketches a part before
+        it."""
+        dev = self.codes.device
+        starts = torch.from_numpy(np.cumsum([0] + self.sizes[:-1])).to(dev)
+        ends = (self.index[:, 1:] + starts[:, None]).flatten()
+        pos = torch.arange(self.codes.numel(), dtype=torch.int64, device=dev)
+        return (torch.searchsorted(ends, pos, right=True)
+                - part * self.n_sketches).to(torch.int32)
+
+
+def combco_on_device(sketch_dir: str, parts: list, n_sketches: int,
+                     device: torch.device, spans: str, abund: bool = False):
+    """Components of a sketch directory read straight onto ``device``
+    (``_runs_on_device``: the index loader's pinned staging and threads,
+    no host copy), a ``CombcoGroup`` of up to ``_OPEN_COMPONENTS``
+    components at a time. ``parts``: (component, first code, end code or
+    None for all) each; a part's codes [first, end), its whole index and,
+    with ``abund``, its abundances [first, end) are read, each file
+    opened once. A whole component is checked by its files' sizes once
+    read (``_check_combco``), a slice's before, and each by its index's
+    last offset. Spans: ``<spans>.upload`` around
+    ``<spans>.read`` and ``<spans>.wait``."""
+    for g0 in range(0, len(parts), _OPEN_COMPONENTS):
+        group = parts[g0:g0 + _OPEN_COMPONENTS]
+        runs: list[list] = [[], [], []]
+        totals = {}
+        for c, a, b in group:
+            paths = [formats.combco_path(sketch_dir, c),
+                     formats.combco_index_path(sketch_dir, c),
+                     formats.abund_path(sketch_dir, c)]
+            if b is not None:  # a slice: its sizes checked first
+                totals[c] = check_combco(sketch_dir, c, n_sketches)
+                paths[0] = (paths[0], 4 * a, 4 * (b - a))
+                paths[2] = (paths[2], 2 * a, 2 * (b - a))
+            for run, path in zip(runs, paths):
+                run.append(path)
+        with torch.profiler.record_function(f"{spans}.upload"):
+            views, got = _runs_on_device(runs[:3 if abund else 2], device, spans)
+        sizes = []
+        for i, (c, a, b) in enumerate(group):
+            if b is None:
+                totals[c] = b = _check_combco(sketch_dir, c, n_sketches, got[0][i],
+                                              got[1][i], got[2][i] if abund else None)
+            sizes.append(b - a)
+        index = views[1].view(torch.int64).view(len(group), n_sketches + 1)
+        for (c, *_), last in zip(group, index[:, -1].tolist()):
+            total = totals[c]
+            if last != total:
+                raise ValueError(f"{formats.combco_index_path(sketch_dir, c)} ends "
+                                 f"at {last} codes, "
+                                 f"{formats.combco_path(sketch_dir, c)} holds "
+                                 f"{total} (component {c})")
+        yield CombcoGroup([c for c, *_ in group], sizes, views[0].view(torch.int32),
+                          index, views[2].view(torch.int16) if abund else None,
+                          n_sketches)
+        # the group's buffer goes before the next group is read
+        views = None
+
+
 @dataclasses.dataclass
 class _Sidecar:
-    """One component's open CSR files: (descriptor, size, offset in the
+    """One component's open CSR files: (descriptor, 0, size, offset in the
     device buffer) for uniq, offsets and gids, and the buffer offset past
     them; the postings total and the largest key, and a small index's
     keys, read on the host."""
 
-    files: list[tuple[int, int, int]]
+    files: list[tuple[int, int, int, int]]
     end: int
     total: int
     max_key: int
@@ -359,9 +485,9 @@ def _open_sidecar(mco_dir: str, c: int, at: int, fds: list[int]) -> _Sidecar | N
         if size % width:
             raise ValueError(f"{path}: {size} bytes is not a whole number "
                              f"of {width}-byte values")
-        files.append((fd, size, at))
+        files.append((fd, 0, size, at))
         at += -(-size // _ALIGN) * _ALIGN
-    (fu, su, _), (fo, so, _), _ = files
+    (fu, _, su, _), (fo, _, so, _), _ = files
     host_keys = None
     if su <= 4 * HOST_DIRECTORY_KEYS:
         host_keys = torch.from_numpy(np.empty(su // 4, np.int32))
@@ -393,7 +519,7 @@ def _load_components(mco_dir: str, cs: range, n_ref: int, device: torch.device,
             comps.append(DeviceIndex.from_sparse(
                 dense_to_sparse(row_offset, gids, n_ref), device))
             continue
-        (_, su, ou), (_, so, oo), (_, sg, og) = sc.files
+        (_, _, su, ou), (_, _, so, oo), (_, _, sg, og) = sc.files
         with torch.profiler.record_function("index.directory"):
             comps.append(DeviceIndex.checked(
                 buf[ou:ou + su].view(torch.int32), buf[oo:oo + so].view(torch.int64),
@@ -401,6 +527,246 @@ def _load_components(mco_dir: str, cs: range, n_ref: int, device: torch.device,
                 total=sc.total, max_key=sc.max_key, host_keys=sc.host_keys,
             ))
     return comps
+
+
+# the most bytes of index files that one group of a mesh build
+# (``CsrSlices.groups``) reads onto a device; its scratch there is a few
+# times this
+MESH_GROUP_BYTES = 1 << 29
+
+# a group of ``CsrSlices.groups``: per row its component (int64), code
+# (int32 bit view of the uint32) and postings count (int64), and the
+# postings' genome ids (int32 bit views; None when not read)
+CsrGroup = collections.namedtuple("CsrGroup", "comp uniq counts gids")
+
+
+def _map(path: str, dtype: str) -> np.ndarray:
+    """A file's values mapped read-only (none for an empty file)."""
+    return np.memmap(path, dtype, "r") if os.path.getsize(path) else np.zeros(0, dtype)
+
+
+class CsrSlices:
+    """Row ranges of an index directory's components, read onto a device
+    a bounded group at a time: the mesh's shard build
+    (``parallel/sharded_search.device_shards``).
+
+    Each file is opened once a pass (``groups``: a path lookup is the
+    host's largest cost per file, 256 components at L3K12) and its size
+    taken from the open descriptor; on the host only what places a range
+    is read besides: an offset where a range starts or ends inside a
+    component (``os.pread`` of 8 bytes) and, for ``code_rows``, its
+    codes mapped (``np.memmap``), so a search reads a few pages. A
+    component with only the reference's dense mco.index.<c> (a database
+    built by the reference binary) is read and converted on the host,
+    one such component at a time, and its rows uploaded from there."""
+
+    def __init__(self, mco_dir: str, stat: formats.McoStat):
+        self.dir, self.stat = mco_dir, stat
+        self._sizes: dict = {}  # component -> (rows, postings), None if dense
+        self._fds: dict = {}  # component -> its sidecar's open descriptors
+        self._codes: dict = {}
+        self._dense: tuple = (None, None)
+
+    def _open(self, c: int) -> bool:
+        """Open component ``c``'s sidecar (uniq, offsets, postings; kept
+        until ``_close``) and note its sizes; False for a dense-only
+        component."""
+        if c in self._fds:
+            return True
+        if c in self._sizes and self._sizes[c] is None:
+            return False
+        paths = (*_csr_paths(self.dir, c), formats.mco_path(self.dir, c))
+        fds: list[int] = []
+        try:
+            for i, path in enumerate(paths):
+                try:
+                    fds.append(os.open(path, os.O_RDONLY))
+                except FileNotFoundError:
+                    if i == 2:  # a sidecar without its postings
+                        raise
+                    self._sizes[c] = None
+                    return False
+            su, so, sg = (os.fstat(fd).st_size for fd in fds)
+            if su % 4 or so != 2 * su + 8 or sg % 4:
+                raise ValueError(f"{self.dir}: component {c}'s sidecar holds {su} "
+                                 f"B of codes, {so} B of offsets and {sg} B of "
+                                 f"postings")
+        except BaseException:
+            for fd in fds:
+                os.close(fd)
+            raise
+        if self._sizes.get(c) is None:
+            self._sizes[c] = (su // 4, sg // 4)
+        self._fds[c] = fds
+        return True
+
+    def _close(self, keep: int | None = None) -> None:
+        """Close every open sidecar but component ``keep``'s."""
+        for c in [c for c in self._fds if c != keep]:
+            for fd in self._fds.pop(c):
+                os.close(fd)
+
+    def _sidecar(self, c: int) -> tuple[int, int] | None:
+        """Component ``c``'s (rows, postings), or None for a dense-only
+        component."""
+        if c not in self._sizes and self._open(c):
+            for fd in self._fds.pop(c):
+                os.close(fd)
+        return self._sizes[c]
+
+    def _dense_arrays(self, c: int) -> tuple:
+        """A dense-only component's (codes uint32, offsets, postings) on the
+        host: the last one asked for is kept."""
+        if self._dense[0] != c:
+            self._dense = (None, None)  # the last one goes before the next is read
+            sp = dense_to_sparse(*formats.read_mco_component(self.dir, c),
+                                 self.stat.infile_num)
+            self._dense = (c, (sp.uniq_codes, sp.offsets, sp.gids))
+        return self._dense[1]
+
+    def rows(self, c: int) -> int:
+        side = self._sidecar(c)
+        return side[0] if side else self._dense_arrays(c)[0].size
+
+    def offset(self, c: int, r: int) -> int:
+        """Component ``c``'s offset of row ``r``: the postings before it."""
+        side = self._sidecar(c)
+        if not side:
+            return int(self._dense_arrays(c)[1][r])
+        if r in (0, side[0]):
+            return 0 if r == 0 else side[1]
+        path = _csr_paths(self.dir, c)[1]
+        fd = self._fds[c][1] if c in self._fds else os.open(path, os.O_RDONLY)
+        try:
+            got = os.pread(fd, 8, 8 * r)
+        finally:
+            if c not in self._fds:
+                os.close(fd)
+        if len(got) != 8:
+            raise ValueError(f"{path} ends before the offset of row {r}")
+        return int.from_bytes(got, "little")
+
+    def code_rows(self, c: int, codes: list[int]) -> list[int]:
+        """The rows of component ``c`` whose code is below each of
+        ``codes`` (uint32 values)."""
+        if c not in self._codes:
+            self._codes[c] = (_map(_csr_paths(self.dir, c)[0], "<u4")
+                              if self._sidecar(c) else None)
+        mine = self._codes[c] if self._codes[c] is not None else (
+            self._dense_arrays(c)[0])
+        return np.searchsorted(mine, np.asarray(codes, np.uint32)).tolist()
+
+    def rows_below(self, c: int, key: int, bits: int) -> int:
+        """The rows of component ``c`` whose folded key ``code << bits | c``
+        is below the unsigned ``key``."""
+        code = key >> bits
+        if c < key & ((1 << bits) - 1):  # code's own row is below too
+            return self.code_rows(c, [code + 1])[0] if code < 0xFFFFFFFF else self.rows(c)
+        return self.code_rows(c, [code])[0]
+
+    def groups(self, device: torch.device, ranges: list | None = None,
+               postings: bool = True):
+        """Row ranges (component, first row, end row or None for the last)
+        of the components (every row of each by default) on ``device``, a
+        ``CsrGroup`` a group, the ranges' rows one after another. A group
+        holds at most ``MESH_GROUP_BYTES`` of files (a range larger than
+        that is cut by rows; a row is never cut) from at most
+        ``_OPEN_COMPONENTS`` ranges, or rows of one dense-only component.
+        Its pieces are read by ``_runs_on_device``: the ranges' codes back
+        to back, then their offsets, then (``postings``) their postings,
+        each one tensor. A group is read once the one before is consumed,
+        so a caller that drops each group holds one at a time. Spans:
+        ``mesh.upload`` around ``mesh.read`` and ``mesh.wait``."""
+        device = resolve_device(device)
+        if ranges is None:
+            ranges = [(c, 0, None) for c in range(self.stat.comp_num)]
+        plan = self._plan(ranges, postings)
+        try:
+            for group, current in plan:
+                with torch.profiler.record_function("mesh.upload"):
+                    got = self._read(group, device, postings)
+                # the group's files but the one the plan is cutting
+                self._close(keep=current)
+                yield got
+                del got
+        finally:
+            plan.close()
+            self._close()
+
+    def _plan(self, ranges: list, postings: bool):
+        """``groups``' groups of pieces (component, first row, end row,
+        first posting, end posting), each with the component whose range
+        the plan is in when it is given."""
+        def cost(c, r0, p0, r1):
+            return 12 * (r1 - r0) + (4 * (self.offset(c, r1) - p0) if postings else 0)
+
+        group, size = [], 0
+        for c, r0, r1 in ranges:
+            dense = not self._open(c)
+            r1 = self.rows(c) if r1 is None else r1
+            while r0 < r1:
+                p0 = self.offset(c, r0)
+                # the most rows from r0 that fit, one at least
+                lo, hi = (r1, r1) if cost(c, r0, p0, r1) <= MESH_GROUP_BYTES else (
+                    r0 + 1, r1)
+                while lo < hi:
+                    mid = (lo + hi + 1) // 2
+                    if cost(c, r0, p0, mid) <= MESH_GROUP_BYTES:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                n = cost(c, r0, p0, lo)
+                piece = (c, r0, lo, p0, self.offset(c, lo))
+                if group and (dense or size + n > MESH_GROUP_BYTES
+                              or len(group) == _OPEN_COMPONENTS):
+                    yield group, c
+                    group, size = [], 0
+                if dense:
+                    yield [piece], c
+                else:
+                    group.append(piece)
+                    size += n
+                r0 = lo
+        if group:
+            yield group, None
+
+    def _read(self, group: list, device: torch.device, postings: bool) -> CsrGroup:
+        if self._sizes[group[0][0]] is None:  # one dense-only component's rows
+            (c, r0, r1, p0, p1), = group
+            uniq_h, offsets_h, gids_h = self._dense_arrays(c)
+            uniq = torch.from_numpy(uniq_h[r0:r1].view(np.int32)).to(device)
+            ends = torch.from_numpy(offsets_h[r0 + 1:r1 + 1].astype(np.int64)).to(device)
+            gids = (torch.from_numpy(gids_h[p0:p1].astype(np.uint32).view(np.int32))
+                    .to(device) if postings else None)
+        else:
+            fds = [self._fds[c] for c, *_ in group]
+            runs = [[(f[0], 4 * r0, 4 * (r1 - r0)) for f, (_, r0, r1, _, _)
+                     in zip(fds, group)],
+                    [(f[1], 8 * (r0 + 1), 8 * (r1 - r0)) for f, (_, r0, r1, _, _)
+                     in zip(fds, group)]]
+            if postings:
+                runs.append([(f[2], 4 * p0, 4 * (p1 - p0))
+                             for f, (*_, p0, p1) in zip(fds, group)])
+            views, _ = _runs_on_device(runs, device, "mesh")
+            uniq, ends = views[0].view(torch.int32), views[1].view(torch.int64)
+            gids = views[2].view(torch.int32) if postings else None
+        # each row's postings: the step of its offsets, from the range's
+        # first offset at a range's first row; and its component. A
+        # range's last offset must be the end of its postings (a
+        # sidecar's last offset, its postings file's size)
+        lens = np.array([r1 - r0 for _, r0, r1, _, _ in group], np.int64)
+        firsts = np.cumsum(lens) - lens
+        meta = torch.from_numpy(np.stack(
+            [firsts, [p[3] for p in group], [p[0] for p in group], lens,
+             firsts + lens - 1, [p[4] for p in group]]).astype(np.int64)).to(device)
+        if not torch.equal(ends[meta[4]], meta[5]):
+            raise ValueError(f"{self.dir}: the offsets of components "
+                             f"{sorted({p[0] for p in group})} do not end where "
+                             f"their postings do")
+        counts = torch.diff(ends, prepend=ends.new_zeros(1))
+        counts[meta[0]] = ends[meta[0]] - meta[1]
+        comp = torch.repeat_interleave(meta[2], meta[3], output_size=int(lens.sum()))
+        return CsrGroup(comp, uniq, counts, gids)
 
 
 def load_device_index(mco_dir: str, device: torch.device

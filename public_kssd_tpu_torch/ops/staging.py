@@ -8,11 +8,15 @@ later users of the same device, block size and buffer count (``borrow``),
 so only the first pays for pinning; ``prepare`` makes a set ahead of its
 first user (the card's start, ``start.py``). Stage I's sketch stream
 (``ops/sketch.py``) and the search's index loader (``index.py``
-``load_device_index``) share this.
+``load_device_index``) share this. The buffers also carry results the
+other way (``Staging.fetch``): the mesh search's count blocks, each
+copied from the device into a pinned buffer and from there into its
+place in the caller's array.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 
@@ -75,6 +79,56 @@ class Staging:
             current.wait_event(done)
         self.events[i] = done
         return out
+
+    def fetch(self, src: torch.Tensor, dst: np.ndarray) -> None:
+        """The 2-D tensor ``src`` (on this set's device) into ``dst``, a
+        numpy array of its shape and item size (a strided view of a
+        larger array or of a memmap serves): ``src`` goes a piece of whole
+        rows at a time (column ranges of a row wider than a buffer) into
+        the next buffer, on a card on torch's current stream, and each
+        piece is copied into its place in ``dst`` once its copy has ended,
+        while the next pieces' copies run."""
+        if src.dim() != 2 or tuple(src.shape) != dst.shape or (
+                src.element_size() != dst.itemsize):
+            raise ValueError(f"cannot fetch {src.dtype} {tuple(src.shape)} into "
+                             f"{dst.dtype} {dst.shape}")
+        rows, cols = dst.shape
+        width = src.element_size()
+        block = self.host[0].size
+        if cols * width > block:
+            step = max(block // width, 1)
+            for c0 in range(0, cols, step):
+                c1 = min(c0 + step, cols)
+                self.fetch(src[:, c0:c1].contiguous(), dst[:, c0:c1])
+            return
+        src = src.contiguous()
+        per = max(block // max(cols * width, 1), 1)
+        pending: collections.deque = collections.deque()
+
+        def land(done, i, r0, r1):
+            if done is not None:
+                done.synchronize()
+            n = (r1 - r0) * cols * width
+            dst[r0:r1] = self.host[i][:n].view(dst.dtype).reshape(r1 - r0, cols)
+
+        with contextlib.ExitStack() as stack:
+            if self.stream is not None:
+                stack.enter_context(torch.cuda.device(self.device))
+            for k, r0 in enumerate(range(0, rows, per)):
+                r1 = min(r0 + per, rows)
+                i = k % self.count
+                if len(pending) == self.count:
+                    land(*pending.popleft())
+                self.writable(i)
+                piece = src[r0:r1].reshape(-1).view(torch.uint8)
+                self.bufs[i][:piece.numel()].copy_(piece, non_blocking=True)
+                done = None
+                if self.stream is not None:
+                    done = torch.cuda.Event()
+                    done.record()
+                pending.append((done, i, r0, r1))
+            while pending:
+                land(*pending.popleft())
 
 
 _SETS: dict[tuple[torch.device, int, int], list[Staging]] = {}

@@ -11,10 +11,16 @@ axis of a 1 x S mesh:
 
   * the DB's (code, ref-id) pairs — components folded into uint64 keys
     ``comp << 32 | code`` — are split by position over the S shards; each
-    slot joins its slice (in JOIN_CHUNK pieces) against the query table
-    on its device with the 64-bit-key instance of csrc/join.cu
-    (``join64``), which sizes its output exactly: no capacity, no retry,
-    no padding;
+    slot reads only its slice of the DB's combco files straight onto its
+    device (``_slot_db``: ``index.combco_on_device``, the index loader's
+    pinned staging and threads), folds it there and makes each
+    JOIN_CHUNK's genome ids there (``composite._genome_ids``), and joins
+    the chunk against the query table on its device with the 64-bit-key
+    instance of csrc/join.cu (``join64``), which sizes its output
+    exactly: no capacity, no retry, no padding;
+  * the query table is made on the first local slot's device
+    (``_fold_queries_device``: two stable sorts and a compare of
+    neighbours) and copied to the other devices;
   * the packed hit keys ``qid << shift | rid << 16 | abundance`` stay on
     the devices in one process; across processes they are gathered with
     ``parallel.all_gather_objects`` and uploaded again;
@@ -24,76 +30,93 @@ axis of a 1 x S mesh:
     per-(query, ref) aggregates come back),
     so the report text is integer-exact vs every other backend by
     construction.
+
+The JAX package's host folds (``FOLD_SHIFT``, ``_fold_ref``,
+``_fold_queries``, ``_shard_db``) have no copy here; the tests hold the
+device folds to them.
 """
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
-from public_kssd_tpu_torch import composite, formats, parallel
-
-FOLD_SHIFT = np.uint64(32)  # component in the high bits, code in the low
-
-
-def _fold_ref(ref_dir: str) -> tuple[np.ndarray, np.ndarray, int]:
-    """(keys uint64 [total], rid int32 [total], n_ref): all components'
-    codes folded into one key space with their owning genome ids."""
-    stat = formats.read_co_stat(ref_dir)
-    keys, rids = [], []
-    for c in range(stat.comp_num):
-        codes, index = formats.read_combco(ref_dir, c)
-        keys.append(
-            (np.uint64(c) << FOLD_SHIFT) | codes.astype(np.uint64)
-        )
-        rids.append(
-            np.searchsorted(
-                index[1:], np.arange(codes.size, dtype=np.uint64), "right"
-            ).astype(np.int32)
-        )
-    return np.concatenate(keys), np.concatenate(rids), stat.infile_num
+from public_kssd_tpu_torch import composite, formats, index as index_mod, parallel
+from public_kssd_tpu_torch.ops import count as count_ops
 
 
-def _fold_queries(qry_dir: str):
-    """Combined query table over ALL queries and components: folded
-    uint64 keys sorted ascending, with aligned query ids + abundances.
-    Duplicate (query, code) pairs keep the FIRST occurrence — a sketch
-    is a set (the reference hash-dedups before probing,
-    command_composite.c:453-463), matching the host oracle exactly."""
+def _slot_db(ref_dir: str, stat: formats.CoStat, r: int, n_shards: int,
+             device: torch.device):
+    """Slot ``r``'s slice of the folded DB (``stat``: its stat, as read),
+    the JAX package's ``_shard_db`` position cut (ceil(size / n_shards)
+    entries a slice) of its ``_fold_ref`` order, made on ``device``:
+    yields (keys int64, genome ids int32) a ``JOIN_CHUNK`` at most. Only
+    the components the slice overlaps are read, and of each only the
+    codes in it with the component's whole index
+    (``index.combco_on_device``); the genome ids come from the index
+    there (``composite._genome_ids``). Spans: ``mesh.upload`` around
+    ``mesh.read`` and ``mesh.wait``; ``mesh.fold``."""
+    sizes = [index_mod.check_combco(ref_dir, c, stat.infile_num)
+             for c in range(stat.comp_num)]
+    per = -(-max(sum(sizes), 1) // n_shards)
+    lo, hi = r * per, (r + 1) * per
+    parts, at = [], 0
+    for c, n in enumerate(sizes):
+        a, b = max(lo - at, 0), min(hi - at, n)
+        if b > a:
+            parts.append((c, a, b))
+        at += n
+    todo = iter(parts)
+    for g in index_mod.combco_on_device(ref_dir, parts, stat.infile_num, device,
+                                        "mesh"):
+        at = 0
+        for i, n in enumerate(g.sizes):
+            c, a, b = next(todo)
+            codes, ends = g.codes[at:at + n], g.index[i, 1:]
+            at += n
+            for c0 in range(a, b, composite.JOIN_CHUNK):
+                c1 = min(c0 + composite.JOIN_CHUNK, b)
+                with torch.profiler.record_function("mesh.fold"):
+                    keys = count_ops._widen(codes[c0 - a:c1 - a]) | (c << 32)
+                    rid = composite._genome_ids(ends, c0, c1)
+                yield keys, rid
+                del keys, rid
+        # the group's buffer goes before the next group is read
+        g = codes = ends = None
+
+
+def _fold_queries_device(qry_dir: str, device: torch.device):
+    """The JAX package's ``_fold_queries`` made on ``device``: (folded
+    keys int64 ascending, query ids int32, abundances int32), the
+    duplicates of a (key, query) dropped but the first. The combco files
+    are read straight onto the device (``index.combco_on_device``) and
+    folded a group of components at a time; one stable sort by query id
+    and one stable sort by key (sign bit flipped: unsigned order) leave
+    the entries in (key, query, position) order, as ``_fold_queries``'
+    lexsort does, and a compare of neighbours keeps the first of each
+    run."""
     stat = formats.read_co_stat(qry_dir)
-    ks, qs, abs_ = [], [], []
-    for c in range(stat.comp_num):
-        codes, index, abund = formats.read_combco(qry_dir, c, with_abund=True)
-        ks.append((np.uint64(c) << FOLD_SHIFT) | codes.astype(np.uint64))
-        qs.append(
-            np.searchsorted(
-                index[1:], np.arange(codes.size, dtype=np.uint64), "right"
-            ).astype(np.int32)
-        )
-        abs_.append(abund.astype(np.uint32))
-    k = np.concatenate(ks)
-    q = np.concatenate(qs)
-    a = np.concatenate(abs_)
-    order = np.lexsort((np.arange(k.size), q, k))
-    k, q, a = k[order], q[order], a[order]
-    if k.size:
-        keep = np.ones(k.size, bool)
+    keys, qids, abunds = [], [], []
+    for g in index_mod.combco_on_device(
+            qry_dir, [(c, 0, None) for c in range(stat.comp_num)], stat.infile_num,
+            device, "mesh", abund=True):
+        with torch.profiler.record_function("mesh.fold"):
+            part = g.part_of()
+            comp = torch.tensor(g.comps, dtype=torch.int64, device=device)[part]
+            keys.append(count_ops._widen(g.codes) | (comp << 32))
+            qids.append(g.sketch_ids(part))
+            abunds.append(g.abund.to(torch.int32) & 0xFFFF)
+        del g, part, comp  # before the next group is read
+    with torch.profiler.record_function("mesh.fold"):
+        k, q, a = (torch.cat(ts) for ts in (keys, qids, abunds))
+        del keys, qids, abunds
+        order = torch.sort(q, stable=True).indices
+        order = order[torch.sort(k[order] ^ count_ops._SIGN64, stable=True).indices]
+        k, q, a = k[order], q[order], a[order]
+        keep = torch.ones(k.numel(), dtype=torch.bool, device=device)
         keep[1:] = (k[1:] != k[:-1]) | (q[1:] != q[:-1])
-        k, q, a = k[keep], q[keep], a[keep]
-    return k, q, a
-
-
-def _shard_db(keys: np.ndarray, rids: np.ndarray, n_shards: int):
-    """The folded DB split by position into ``n_shards`` contiguous
-    slices [(keys, rids), ...] of ceil(size / n_shards) entries (the last
-    ones shorter or empty): ragged, so there is no pad key."""
-    per = -(-max(keys.size, 1) // n_shards)
-    return [
-        (keys[s * per : (s + 1) * per], rids[s * per : (s + 1) * per])
-        for s in range(n_shards)
-    ]
+        return k[keep], q[keep], a[keep]
 
 
 def species_abundance_sharded(
@@ -105,7 +128,11 @@ def species_abundance_sharded(
 ) -> str:
     """Mesh-sharded twin of composite.species_abundance; identical report
     text (same integer aggregates, same shared report tail). ``mesh`` is
-    1 x S: queries are not split, the DB is split over its S slots."""
+    1 x S: queries are not split, the DB is split over its S slots, each
+    slot's slice read and folded on its device (``_slot_db``); the query
+    table is made on the first local slot's device
+    (``_fold_queries_device``) and copied to the others. No part of the
+    DB or the query table is built on the host."""
     if mesh.dp != 1:
         raise ValueError(f"composite shards the DB only: mesh must be 1 x S, "
                          f"not {mesh.dp} x {mesh.ref}")
@@ -114,34 +141,29 @@ def species_abundance_sharded(
         raise ValueError("get_species_abundance(): query has not abundance")
     n_qry = qry_stat.infile_num
     ref_stat = formats.read_co_stat(ref_dir)
-    keys, rids, n_ref = _fold_ref(ref_dir)
-    shards = _shard_db(keys, rids, mesh.ref)
-    sq, sqid, sab = _fold_queries(qry_dir)
+    n_ref = ref_stat.infile_num
     qid_shift = 16 + max(int(n_ref).bit_length(), 1)
     composite._check_key_width(qid_shift, n_qry)
 
-    host_table = [torch.from_numpy(a) for a in (
-        sq.view(np.int64), sqid.astype(np.int32),
-        sab.astype(np.uint32).view(np.int32))]
-    max_key = int(sq[-1]) if sq.size else 0
+    span = torch.profiler.record_function
+    slots = mesh.local_slots()
+    first = slots[0][2] if slots else torch.device("cpu")
     # the query table and its directory per device, built once there
     tables: dict[torch.device, tuple] = {}
     parts: list[torch.Tensor] = []
-    slots = mesh.local_slots()
     for _, r, dev in slots:
         if dev not in tables:
-            t = tuple(a.to(dev) for a in host_table)
-            tables[dev] = (t, composite.query_directory(t[0], max_key,
-                                                        host_table[0]))
+            with span("mesh.table"):
+                if not tables:
+                    table = _fold_queries_device(qry_dir, dev)
+                    max_key = int(table[0][-1]) if table[0].numel() else 0
+                else:
+                    table = tuple(t.to(dev) for t in next(iter(tables.values()))[0])
+                tables[dev] = (table, composite.query_directory(table[0], max_key))
         table, qdir = tables[dev]
-        k, rid = shards[r]
-        for c0 in range(0, k.size, composite.JOIN_CHUNK):
-            c1 = min(c0 + composite.JOIN_CHUNK, k.size)
-            parts.append(composite.join_kernel(
-                torch.from_numpy(k[c0:c1].view(np.int64)).to(dev), None,
-                torch.from_numpy(rid[c0:c1]).to(dev), *table, qid_shift, qdir,
-            ))
-    first = slots[0][2] if slots else torch.device("cpu")
+        for keys, rid in _slot_db(ref_dir, ref_stat, r, mesh.ref, dev):
+            parts.append(composite.join_kernel(keys, None, rid, *table,
+                                               qid_shift, qdir))
     if parallel.process_count() > 1:
         hits = [t.cpu().numpy() for t in parts]
         parts = [torch.from_numpy(h).to(first)
@@ -154,10 +176,11 @@ def species_abundance_sharded(
     # every process still returns the same report text
     write_files = parallel.process_index() == 0
     lines: list[str] = []
-    for qn in range(n_qry):
-        composite.append_query_report(
-            lines, stats_all[qn], qn, ref_stat, qry_stat, binvec,
-            out_dir or os.path.join(ref_dir, composite.BINVEC_DIRNAME),
-            write_files=write_files,
-        )
+    with span("mesh.report"):
+        for qn in range(n_qry):
+            composite.append_query_report(
+                lines, stats_all[qn], qn, ref_stat, qry_stat, binvec,
+                out_dir or os.path.join(ref_dir, composite.BINVEC_DIRNAME),
+                write_files=write_files,
+            )
     return "".join(lines)

@@ -168,11 +168,12 @@ def search(
         counts = np.fromfile(skf, dtype="<u4").reshape(n_qry, n_ref)
     else:
         with timer.stage("load_index"):
-            # the mesh's shards and the host oracle are built from host
-            # arrays; one device loads the index straight onto itself
+            # one device loads the index straight onto itself; the mesh
+            # builds its shards on its devices from the directory, in the
+            # count stage; the host oracle reads host arrays
             if mesh is None and device is not None:
                 _, comps = index_mod.load_device_index(ref_dir, device)
-            else:
+            elif mesh is None:
                 _, comps = index_mod.load_sparse_index(ref_dir)
         with timer.stage("count"):
             # the count matrix is disk-backed under -m, exactly like
@@ -199,7 +200,7 @@ def search(
                         f"{comp_code_bits} fold bits: wrong --component-sz?"
                     )
                 sharded_search.sharded_search_counts(
-                    qry_dir, comps, comp_code_bits, mesh, batch=batch,
+                    qry_dir, ref_dir, comp_code_bits, mesh, batch=batch,
                     counts_out=counts, koc_out=koc_counts,
                     strategy=shard_strategy,
                 )

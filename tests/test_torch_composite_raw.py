@@ -1,5 +1,5 @@
 """composite's raw route with its DB on the device: the reader
-(``composite._raw_device_components``, over ``index.files_on_device``)
+(``composite._raw_device_components``, over ``index.combco_on_device``)
 and the genome ids made from the combco index there
 (``composite._genome_ids``, a join chunk at a time) against the host's
 ``_raw_components`` and its ``rid_of``, on CPU tensors, where the same
@@ -119,7 +119,7 @@ def test_raw_route_matches_jax_host_oracle(tmp_path, monkeypatch, case):
     """The raw route's report and -b .abv files equal the JAX package's
     host oracle (device=None) byte for byte, with ``_raw_components`` and
     every host read of the DB's combco files refused: the DB reaches the
-    device through ``index.files_on_device`` alone, and each join chunk
+    device through ``index.combco_on_device`` alone, and each join chunk
     gets its genome ids there."""
     ref_dir, qry_dir, _ = _write_db(tmp_path, case)
     want = jax_composite.species_abundance(ref_dir, qry_dir, device=None)
@@ -131,7 +131,7 @@ def test_raw_route_matches_jax_host_oracle(tmp_path, monkeypatch, case):
     def refuse(*args, **kwargs):
         raise AssertionError("the raw device route read its DB on the host")
 
-    real_read, real_files = formats.read_combco, index.files_on_device
+    real_read, real_runs = formats.read_combco, index._runs_on_device
     uploaded, joins = [], []
 
     def read_combco(dirpath, *args, **kwargs):
@@ -139,9 +139,11 @@ def test_raw_route_matches_jax_host_oracle(tmp_path, monkeypatch, case):
             refuse()
         return real_read(dirpath, *args, **kwargs)
 
-    def files_on_device(paths, device, spans):
-        uploaded.extend(paths)
-        return real_files(paths, device, spans)
+    def runs_on_device(runs, device, spans):
+        # each component's files, in their order: codes, index
+        uploaded.extend(p if isinstance(p, str) else p[0]
+                        for files in zip(*runs) for p in files)
+        return real_runs(runs, device, spans)
 
     real_join = composite.join_kernel
 
@@ -152,7 +154,7 @@ def test_raw_route_matches_jax_host_oracle(tmp_path, monkeypatch, case):
 
     monkeypatch.setattr(composite, "_raw_components", refuse)
     monkeypatch.setattr(formats, "read_combco", read_combco)
-    monkeypatch.setattr(index, "files_on_device", files_on_device)
+    monkeypatch.setattr(index, "_runs_on_device", runs_on_device)
     monkeypatch.setattr(composite, "join_kernel", join)
     got = composite.species_abundance(ref_dir, qry_dir, device=CPU)
     assert got == want and want.count("\n") >= 3

@@ -19,6 +19,7 @@ from jax.sharding import Mesh as JaxMesh
 from conftest import assert_files_equal
 from test_composite_scale import _mk_db
 from test_sharded_search import db7  # noqa: F401  (module fixture)
+from test_torch_mesh_device import host_fold_refused  # noqa: F401  (fixture)
 
 from public_kssd_tpu import cli as jax_cli
 from public_kssd_tpu import composite as jax_composite
@@ -49,11 +50,12 @@ def _jax_mesh(dp, ref):
 
 @pytest.mark.parametrize("strategy", ["genome", "code"])
 @pytest.mark.parametrize("dp,ref", [(1, 8), (8, 1), (2, 4), (4, 2)])
-def test_sharded_counts_equal_oracle(db7, dp, ref, strategy):  # noqa: F811
+def test_sharded_counts_equal_oracle(db7, indexed7, dp, ref, strategy):  # noqa: F811
     root, params, comps, oracle = db7
     qry = os.path.join(root, "my_qry_hit")
     got = sharded_search.sharded_search_counts(
-        qry, comps, params.comp_code_bits, _mesh(dp, ref), strategy=strategy,
+        qry, os.path.join(indexed7, "my_ref"), params.comp_code_bits,
+        _mesh(dp, ref), strategy=strategy,
     )
     want = jax_ss.sharded_search_counts(
         qry, comps, params, _jax_mesh(dp, ref), strategy=strategy,
@@ -64,48 +66,46 @@ def test_sharded_counts_equal_oracle(db7, dp, ref, strategy):  # noqa: F811
 
 @pytest.mark.parametrize("strategy", ["genome", "code"])
 @pytest.mark.parametrize("n_shards", [3, 4])
-def test_sharded_db_construction(db7, strategy, n_shards):  # noqa: F811
-    """Same cut points and shard contents as the JAX package's sharded
-    DB, whose shards are padded to one shape (the port's are not)."""
+def test_sharded_db_construction(db7, indexed7, strategy, n_shards):  # noqa: F811
+    """Same cut points and shard contents, built on the device from the
+    index directory, as the JAX package's sharded DB of the same index,
+    whose shards are padded to one shape (the port's are not)."""
     _, params, comps, _ = db7
-    key, offsets, gids = sharded_search.merge_components(
-        comps, params.comp_code_bits
-    )
-    jkey, joffsets, jgids = jax_ss.merge_components(comps, params.comp_code_bits)
-    np.testing.assert_array_equal(key, jkey)
-    np.testing.assert_array_equal(offsets, joffsets)
-    np.testing.assert_array_equal(gids, jgids)
+    key, offsets, gids = jax_ss.merge_components(comps, params.comp_code_bits)
     n_ref = comps[0].n_genomes
-    if strategy == "genome":
-        db = sharded_search.build_genome_sharded_db(key, offsets, gids, n_ref, n_shards)
-        jdb = jax_ss.build_genome_sharded_db(key, offsets, gids, n_ref, n_shards)
-    else:
-        db = sharded_search.build_sharded_db(key, offsets, gids, n_ref, n_shards)
-        jdb = jax_ss.build_sharded_db(key, offsets, gids, n_ref, n_shards)
+    build = (jax_ss.build_genome_sharded_db if strategy == "genome"
+             else jax_ss.build_sharded_db)
+    jdb = build(key, offsets, gids, n_ref, n_shards)
+    db = sharded_search.device_shards(os.path.join(indexed7, "my_ref"),
+                                      _mesh(1, n_shards), params.comp_code_bits,
+                                      strategy)
     np.testing.assert_array_equal(db.row_bounds, jdb.row_bounds)
     assert db.n_shards == n_shards and db.n_ref == n_ref
-    for s in range(n_shards):
-        n, g = db.uniq[s].size, db.gids[s].size
-        np.testing.assert_array_equal(db.uniq[s], jdb.uniq[s, :n])
+    shards = [db.index[(s, CPU)] for s in range(n_shards)]
+    for s, ix in enumerate(shards):
+        n, g = ix.uniq.numel(), ix.gids.numel()
+        np.testing.assert_array_equal(ix.uniq.numpy().view(np.uint64), jdb.uniq[s, :n])
         assert (jdb.uniq[s, n:] == np.iinfo(np.uint64).max).all()
-        np.testing.assert_array_equal(db.offsets[s], jdb.offsets[s, : n + 1])
-        assert int(db.offsets[s][-1]) == g
-        np.testing.assert_array_equal(db.gids[s], jdb.gids[s, :g])
-    assert sum(u.size for u in db.gids) == gids.size
+        np.testing.assert_array_equal(ix.offsets.numpy(), jdb.offsets[s, : n + 1])
+        assert int(jdb.offsets[s, -1]) == g
+        np.testing.assert_array_equal(ix.gids.numpy().view(np.uint32), jdb.gids[s, :g])
+    assert sum(ix.gids.numel() for ix in shards) == gids.size
     if strategy == "code":
-        assert sum(u.size for u in db.uniq) == key.size
+        assert sum(ix.uniq.numel() for ix in shards) == key.size
 
 
 @pytest.mark.parametrize("strategy", ["genome", "code"])
 @pytest.mark.parametrize("batch", [1, 3])
-def test_mesh_query_batching_equals_unbatched(db7, batch, strategy):  # noqa: F811
+def test_mesh_query_batching_equals_unbatched(db7, indexed7, batch,  # noqa: F811
+                                               strategy):
     """The -m governor inside the sharded path: per-batch counting into a
     caller matrix equals the single-shot result."""
     root, params, comps, oracle = db7
-    out = np.zeros(oracle.shape, dtype=np.uint32)
+    out = np.full(oracle.shape, 7, dtype=np.uint32)
     got = sharded_search.sharded_search_counts(
-        os.path.join(root, "my_qry_hit"), comps, params.comp_code_bits,
-        _mesh(2, 2), batch=batch, counts_out=out, strategy=strategy,
+        os.path.join(root, "my_qry_hit"), os.path.join(indexed7, "my_ref"),
+        params.comp_code_bits, _mesh(2, 2), batch=batch, counts_out=out,
+        strategy=strategy,
     )
     assert got is out
     np.testing.assert_array_equal(out, oracle)
@@ -131,7 +131,8 @@ def koc7(db7):  # noqa: F811
 
 
 @pytest.mark.parametrize("dp,ref,strategy", [(2, 4, "genome"), (4, 2, "code")])
-def test_sharded_koc_counts_equal_oracle(db7, koc7, dp, ref, strategy):  # noqa: F811
+def test_sharded_koc_counts_equal_oracle(db7, indexed7, koc7, dp, ref,  # noqa: F811
+                                         strategy):
     _, params, comps, _ = db7
     n_qry, n_ref = 3, comps[0].n_genomes
     koc_want = np.zeros((n_qry, n_ref), np.uint64)
@@ -143,8 +144,8 @@ def test_sharded_koc_counts_equal_oracle(db7, koc7, dp, ref, strategy):  # noqa:
                                  koc_out=koc_jax, strategy=strategy)
     koc_got = np.zeros((n_qry, n_ref), np.uint64)
     counts_got = sharded_search.sharded_search_counts(
-        koc7, comps, params.comp_code_bits, _mesh(dp, ref), koc_out=koc_got,
-        strategy=strategy,
+        koc7, os.path.join(indexed7, "my_ref"), params.comp_code_bits,
+        _mesh(dp, ref), koc_out=koc_got, strategy=strategy,
     )
     np.testing.assert_array_equal(counts_got, counts_want)
     np.testing.assert_array_equal(koc_got, koc_want)
@@ -163,9 +164,11 @@ def indexed7(db7):  # noqa: F811
 
 @pytest.mark.parametrize("koc", [False, True])
 @pytest.mark.parametrize("strategy", ["genome", "code"])
-def test_cli_mesh_search_matches_plain(indexed7, koc7, tmp_path, strategy, koc):
+def test_cli_mesh_search_matches_plain(indexed7, koc7, tmp_path, strategy, koc,
+                                       host_fold_refused):
     """kssd_torch dist --mesh 2x4 --device cpu == the plain port run ==
-    kssd_tpu --mesh 2x4, byte for byte (with -m 1: batched)."""
+    kssd_tpu --mesh 2x4, byte for byte (with -m 1: batched), the port's
+    host index read refused."""
     root = indexed7
     qry = koc7 if koc else os.path.join(root, "my_qry_hit")
     ref = os.path.join(root, "my_ref")
@@ -446,9 +449,10 @@ def test_cli_composite_mesh_rejects_bad_specs(tmp_path, capsys):
     capsys.readouterr()
 
 
-def test_cli_mesh_composite_matches_plain(tmp_path, capsys):
+def test_cli_mesh_composite_matches_plain(tmp_path, capsys, host_fold_refused):
     """kssd_torch composite --mesh 4 --device cpu == the plain port run
-    == kssd_tpu composite --mesh 4, and -b writes the same .abv files."""
+    == kssd_tpu composite --mesh 4, and -b writes the same .abv files;
+    the port's host index read refused."""
     ref_dir, qry_dir, *_ = _mk_db(tmp_path, n_ref=30, sk=48, n_qry=2, seed=5)
     outs = []
     for argv in (

@@ -379,7 +379,7 @@ WORK_CASES = [
     (["-r", "raw", "-L", "x.shuf", "co"], ("sketch", "count", "index")),
     (["-r", "mco", "co"], ("count", "index")),
     (["-r", "mco", "co", "--koc-out"], ("count", "index")),
-    (["-r", "mco", "co", "--mesh", "1x1"], ("count",)),
+    (["-r", "mco", "co", "--mesh", "1x1"], ("count", "index")),
     (["-r", "mco", "co", "--cpu-count"], None),
     (["-r", "mco", "co", "-f", "skf.dat"], None),
     (["-r", "mco"], None),
