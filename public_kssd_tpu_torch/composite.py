@@ -42,7 +42,7 @@ import os
 import numpy as np
 import torch
 
-from public_kssd_tpu_torch import formats, kernels, resolve_device, utils
+from public_kssd_tpu_torch import formats, kernels, resolve_device, stattab, utils
 from public_kssd_tpu_torch.ops import count as count_ops
 
 BINVEC_DIRNAME = "abundance_Vec"  # command_composite.c:34
@@ -706,8 +706,9 @@ def species_abundance(
     ``_raw_device_components`` reads straight onto the device. Every
     backend yields the same integer aggregates, so the report text is the
     same bytes."""
-    ref_stat = formats.read_co_stat(ref_dir)
-    qry_stat = formats.read_co_stat(qry_dir)
+    # names in bulk: the report decodes only those it writes
+    ref_stat = stattab.read_co_stat_table(ref_dir)
+    qry_stat = stattab.read_co_stat_table(qry_dir)
     if not qry_stat.koc:
         raise ValueError("get_species_abundance(): query has not abundance")
     n_ref = ref_stat.infile_num
@@ -731,7 +732,8 @@ def species_abundance(
             from public_kssd_tpu_torch import index as index_mod
 
             with timer.stage("load"):
-                _, ref_components = index_mod.load_device_index(ref_dir, device)
+                _, ref_components = index_mod.load_device_index(
+                    ref_dir, device, stattab.read_mco_stat_table(ref_dir))
         if ref_components is not None:
             route = "csr"
             if ref_components[0].n_genomes != n_ref:

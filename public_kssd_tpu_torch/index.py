@@ -769,11 +769,14 @@ class CsrSlices:
         return CsrGroup(comp, uniq, counts, gids)
 
 
-def load_device_index(mco_dir: str, device: torch.device
+def load_device_index(mco_dir: str, device: torch.device,
+                      stat: formats.McoStat | None = None,
                       ) -> tuple[formats.McoStat, list[DeviceIndex]]:
     """Load an index directory straight onto ``device``: its stat and one
     ``DeviceIndex`` a component, equal to ``DeviceIndex.from_sparse`` of
     ``load_sparse_index``'s components, without a host copy of the index.
+    ``stat`` is the directory's mcofiles.stat where the caller has read it
+    already (``stattab.read_mco_stat_table``); else it is read here.
 
     The CSR sidecar's files (mco.uniq.<c> ``<u4``, mco.csroff.<c> ``<u8``,
     mco.<c> ``<u4``) hold the bit views a DeviceIndex keeps, so they go
@@ -797,7 +800,8 @@ def load_device_index(mco_dir: str, device: torch.device
     read), ``index.wait`` (a staging buffer waiting for its upload) and
     ``index.directory`` (the checks and the bucket directory)."""
     device = resolve_device(device)
-    stat = formats.read_mco_stat(mco_dir)
+    if stat is None:
+        stat = formats.read_mco_stat(mco_dir)
     threads = INDEX_READ_THREADS
     comps: list[DeviceIndex] = []
     with staging.borrow(device, INDEX_BLOCK, threads + 2) as st:

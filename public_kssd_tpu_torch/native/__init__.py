@@ -310,9 +310,29 @@ def dedup_u32_slot_order(codes: np.ndarray, hashsize: int) -> np.ndarray | None:
 
 class Names:
     """Names as one blob of NUL-terminated UTF-8 strings and each one's
-    byte offset: the form the native formatter reads them in."""
+    byte offset: the form the native formatter reads them in. Of a
+    ``stattab.NameTable`` the blob is its rows themselves, each name at a
+    multiple of the rows' width (the formatter stops at a name's first
+    NUL); where a name fills its row, a copy of the rows with a NUL
+    column appended."""
 
-    def __init__(self, names: list[str]):
+    def __init__(self, names):
+        from public_kssd_tpu_torch.stattab import NameTable
+
+        if isinstance(names, NameTable):
+            n, width = names.rows.shape
+            self.longest = int(names.lengths.max(initial=0))
+            if not n:
+                self.blob = np.zeros(1, np.uint8)
+            elif self.longest < width:
+                self.blob = names.rows.reshape(-1)
+            else:
+                width += 1
+                self.blob = np.zeros((n, width), np.uint8)
+                self.blob[:, :-1] = names.rows
+                self.blob = self.blob.reshape(-1)
+            self.offsets = np.arange(n, dtype=np.int64) * width
+            return
         enc = [n.encode() + b"\0" for n in names]
         self.blob = np.frombuffer(b"".join(enc) or b"\0", np.uint8)
         self.offsets = np.zeros(len(enc), np.int64)

@@ -20,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from public_kssd_tpu_torch import formats, index as index_mod, utils
+from public_kssd_tpu_torch import formats, index as index_mod, stattab, utils
 from public_kssd_tpu_torch.ops import count as count_ops
 from public_kssd_tpu_torch.ops import stats as stats_ops
 
@@ -138,8 +138,10 @@ def search(
             )
     opts = opts or stats_ops.OutputOptions()
     timer = utils.TracedStageTimer()
-    mco_stat = formats.read_mco_stat(ref_dir)
-    qry_stat = formats.read_co_stat(qry_dir)
+    # each stat file read once, its names in bulk (the print formats
+    # them from the table's rows)
+    mco_stat = stattab.read_mco_stat_table(ref_dir)
+    qry_stat = stattab.read_co_stat_table(qry_dir)
     if qry_stat.params_id != mco_stat.params_id:
         raise ShufIdMismatch(
             f"qry shuf_id {qry_stat.params_id} != ref shuf_id {mco_stat.params_id}"
@@ -172,7 +174,7 @@ def search(
             # builds its shards on its devices from the directory, in the
             # count stage; the host oracle reads host arrays
             if mesh is None and device is not None:
-                _, comps = index_mod.load_device_index(ref_dir, device)
+                _, comps = index_mod.load_device_index(ref_dir, device, mco_stat)
             elif mesh is None:
                 _, comps = index_mod.load_sparse_index(ref_dir)
         with timer.stage("count"):

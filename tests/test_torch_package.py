@@ -29,7 +29,9 @@ DIFFERING = {
     # it, into one library in build/public_kssd_tpu_torch/ under a
     # source-hash name, never loading the committed .so; binds the block
     # formatter (Names, dist_rows_buf) in place of the one-row writer
-    # dist_row, which nothing in the port calls; dedup_slot_order and
+    # dist_row, which nothing in the port calls (Names also takes a
+    # stattab.NameTable, whose fixed-width rows are its blob, so a search
+    # prints its names with no loop over them); dedup_slot_order and
     # dedup_counts run the sparse twins of native/kssd_dedup.c (the same
     # bytes; memory and work follow the stream, not hashsize) over a map
     # of the filled slots (_slot_map), built into the same library
@@ -107,7 +109,9 @@ DIFFERING = {
     # _query_table and _hits_to_stats stay the host oracles; the raw
     # route (species_abundance, _batched_stats_device) reads the DB's
     # combco files straight onto the device (_raw_device_components) and
-    # makes each join chunk's genome ids there (_genome_ids)
+    # makes each join chunk's genome ids there (_genome_ids);
+    # species_abundance reads its stat files through stattab (names
+    # decoded only where the report writes them), each file once
     "composite": {
         "DEVICE_JOIN_THRESHOLD", "_batched_join_impl", "_BATCH_JOIN",
         "_batched_join_fn", "_csr_join_impl", "_CSR_JOIN", "_csr_join_fn",

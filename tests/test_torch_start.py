@@ -20,7 +20,7 @@ import torch
 from conftest import assert_co_stat_equal, assert_files_equal
 
 from public_kssd_tpu import cli as jax_cli
-from public_kssd_tpu_torch import cli, formats, pipeline, start
+from public_kssd_tpu_torch import cli, formats, pipeline, start, stattab
 from public_kssd_tpu_torch.ops import staging
 
 torch.set_num_threads(1)
@@ -324,8 +324,8 @@ def test_card_start_joined_before_the_first_device_call(golden7, tmp_path, monke
     assert events.count("staging") == 1 and events.index("context") < events.index("detect")
 
     events.clear()
-    read = formats.read_co_stat
-    monkeypatch.setattr(formats, "read_co_stat",
+    read = stattab.read_co_stat_table  # the search's stat reader
+    monkeypatch.setattr(stattab, "read_co_stat_table",
                         lambda *a, **k: events.append("stats") or read(*a, **k))
     monkeypatch.setattr("public_kssd_tpu_torch.index.load_device_index", stop)
     with pytest.raises(Stop):

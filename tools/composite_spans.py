@@ -22,9 +22,18 @@ into spans on the host clock, the device synchronized as each span
 starts and ends, so that a span holds the device work it launched. A
 span's self seconds are kept under the stage it ran in (``split``:
 stage -> span -> mean seconds a call; the stage's own name holds the
-rest of the stage). Every report of every call is checked against the
-oracle's. The spans:
+rest of the stage; ``split_minor_faults`` the same for the process's
+minor page faults, ``minor_faults_mean`` those of a whole call).
+``outside_s`` is the mean wall less the mean of the logged stages: the
+call's time outside every stage. Every report of
+every call is checked against the oracle's. The spans:
 
+* ``stat.read``: reading a stat file (``formats.read_co_stat`` and
+  ``read_mco_stat``, and ``stattab.read_co_stat_table`` and
+  ``read_mco_stat_table`` where the tree has them): the DB's and the
+  samples' ``cofiles.stat`` before the first stage (kept under its own
+  name, as a stage of its own), the index's ``mcofiles.stat`` in
+  ``load``;
 * ``read``: ``formats.read_combco`` (the query sketch's files; on a
   parent's raw route the DB's too, in ``load``, whose rest is then the
   host's genome ids, ``rid_of``);
@@ -52,6 +61,16 @@ oracle's. The spans:
 * ``stats.fetch``, ``stats.host``: the aggregates' fetch and the
   per-query arrays built from them (``_hits_to_stats_torch`` only).
 
+``--fresh N`` times instead what a ``kssd_torch composite`` process
+pays for its one call: for each route, N fresh processes a tree
+(``--fresh-worker``), each of which starts the card and loads the kernel
+libraries, then times one call (the wall from ``cli.main`` to
+``torch.cuda.synchronize()``, and the stages it logs) and checks its
+report against the oracle's. Nothing runs before that call that a CLI
+process would not run, so the host's allocator starts as a CLI
+process's does. With ``--parent DIR`` the two trees take turns, round by
+round.
+
 ``--compare N --parent DIR`` runs the parent checkout's port (unpack
 it with ``git archive`` into the gitignored ``scratch_runs/``) and this
 one's, each in its own worker, N rounds in turns (P C, C P, ...), and
@@ -61,6 +80,7 @@ parent, round by round, of each route's mean wall.
 Run from the checkout's root, on a card::
 
     python3 tools/composite_spans.py [--calls 3] [--compare N --parent DIR]
+                                     [--fresh N [--parent DIR]]
                                      [--tree DIR] [--refs N] [--samples N]
                                      [--sample-codes N] [--seed N]
                                      [--work DIR] [--out FILE]
@@ -80,6 +100,7 @@ import json
 import logging
 import os
 import re
+import resource
 import shutil
 import statistics
 import subprocess
@@ -93,31 +114,42 @@ ROUTES = ("csr", "raw")
 
 # ----------------------------------------------------------------- worker
 
+def minor_faults() -> int:
+    """This process's minor page faults so far (getrusage)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+
+
 class SyncClock:
-    """``record_function`` stand-in: the self seconds of every span on the
-    host clock, kept under the outermost span it ran in (the stage), the
-    device synchronized as each span starts and ends."""
+    """``record_function`` stand-in: the self seconds and self minor page
+    faults of every span on the host clock, kept under the outermost span
+    it ran in (the stage), the device synchronized as each span starts
+    and ends."""
 
     def __init__(self, sync):
         self.sync = sync
         self.self_s: dict[str, dict[str, float]] = {}
-        self._stack: list[list] = []  # [name, start, child seconds]
+        self.self_faults: dict[str, dict[str, int]] = {}
+        # [name, start, child seconds, faults at start, child faults]
+        self._stack: list[list] = []
 
     @contextlib.contextmanager
     def __call__(self, name: str):
         self.sync()
-        self._stack.append([name, time.perf_counter(), 0.0])
+        self._stack.append([name, time.perf_counter(), 0.0, minor_faults(), 0])
         try:
             yield
         finally:
             self.sync()
-            _, t0, child = self._stack.pop()
-            dt = time.perf_counter() - t0
+            _, t0, child, f0, child_f = self._stack.pop()
+            dt, df = time.perf_counter() - t0, minor_faults() - f0
             stage = self._stack[0][0] if self._stack else name
             spans = self.self_s.setdefault(stage, {})
             spans[name] = spans.get(name, 0.0) + dt - child
+            faults = self.self_faults.setdefault(stage, {})
+            faults[name] = faults.get(name, 0) + df - child_f
             if self._stack:
                 self._stack[-1][2] += dt
+                self._stack[-1][4] += df
 
 
 class Stages(logging.Handler):
@@ -173,22 +205,30 @@ def worker(args) -> dict:
     with open(os.path.join(args.work, "oracle.txt")) as f:
         oracle = f.read()
     on_device = hasattr(composite, "_hits_to_stats_torch")
+    try:
+        from public_kssd_tpu_torch import stattab
+    except ImportError:  # a tree that reads every stat file as a list
+        stattab = None
+    stat_readers = [(formats, "read_co_stat"), (formats, "read_mco_stat")]
+    if hasattr(stattab, "read_co_stat_table"):
+        stat_readers += [(stattab, "read_co_stat_table"),
+                         (stattab, "read_mco_stat_table")]
     stats_fn = "_hits_to_stats_torch" if on_device else "_hits_to_stats"
     stages = Stages()
     utils.log.addHandler(stages)
 
     def call(d):
         buf = io.StringIO()
-        t0 = time.perf_counter()
+        f0, t0 = minor_faults(), time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["composite", "-r", d, "-q", f"{args.work}/qry",
                            "--device", args.device])
         sync()
-        wall = time.perf_counter() - t0
+        wall, faults = time.perf_counter() - t0, minor_faults() - f0
         if rc != 0 or buf.getvalue() != oracle:
             raise AssertionError(f"{args.tree}: the composite report over {d} "
                                  "differs from the host oracle")
-        return wall, dict(stages.last)
+        return wall, dict(stages.last), faults
 
     out = {"tree": args.tree, "device": args.device,
            "stats": "device" if on_device else "host", "routes": {}}
@@ -203,11 +243,12 @@ def worker(args) -> dict:
             return _real(parts, *a, **k)
 
         with patched([(composite, stats_fn, count)]):
-            warm, _ = call(d)
-        walls, st = [], {}
+            warm, *_ = call(d)
+        walls, st, faults = [], {}, []
         for _ in range(args.calls):
-            wall, logged = call(d)
+            wall, logged, n_faults = call(d)
             walls.append(wall)
+            faults.append(n_faults)
             for k, v in logged.items():
                 st[k] = st.get(k, 0.0) + v / args.calls
         clock = SyncClock(sync)
@@ -217,6 +258,8 @@ def worker(args) -> dict:
                   spanned(clock, "table.directory", composite.query_directory)),
                  (composite, "join_kernel",
                   spanned(clock, "join.kernel", composite.join_kernel))]
+        wraps += [(m, f, spanned(clock, "stat.read", getattr(m, f)))
+                  for m, f in stat_readers]
         if not on_device:
             wraps += [
                 (composite, "_query_table",
@@ -235,14 +278,53 @@ def worker(args) -> dict:
                 split_walls.append(call(d)[0])
         split = {s: {k: v / args.calls for k, v in spans.items()}
                  for s, spans in clock.self_s.items()}
+        split_faults = {s: {k: v / args.calls for k, v in spans.items()}
+                        for s, spans in clock.self_faults.items()}
         out["routes"][route] = {
             "check": "byte-equal to the host oracle", "hits": hits[0],
             "warmup_s": warm, "walls": walls,
             "wall_mean": sum(walls) / len(walls), "stages": st,
+            "outside_s": sum(walls) / len(walls) - sum(st.values()),
+            "minor_faults_mean": sum(faults) / len(faults),
+            "split_minor_faults": split_faults,
             "split": split, "split_wall_mean": sum(split_walls) / len(split_walls),
         }
     utils.log.removeHandler(stages)
     return out
+
+
+def fresh_worker(args) -> dict:
+    """One timed composite call of ``args.route`` in this fresh process,
+    after the card's start and the kernel libraries' load."""
+    sys.path.insert(0, args.tree)
+    import torch
+
+    from public_kssd_tpu_torch import cli, kernels, utils
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        for k in kernels.ALL:
+            k.library()
+        torch.cuda.synchronize()
+    stages = Stages()
+    utils.log.addHandler(stages)
+    d = f"{args.work}/{'idx' if args.route == 'csr' else 'ref'}"
+    buf = io.StringIO()
+    f0, t0 = minor_faults(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["composite", "-r", d, "-q", f"{args.work}/qry",
+                       "--device", args.device])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    faults = minor_faults() - f0
+    with open(os.path.join(args.work, "oracle.txt")) as f:
+        if rc != 0 or buf.getvalue() != f.read():
+            raise AssertionError(f"{args.tree}: the composite report over {d} "
+                                 "differs from the host oracle")
+    return {"tree": args.tree, "route": args.route, "wall": wall,
+            "minor_faults": faults, "stages": dict(stages.last)}
 
 
 # ------------------------------------------------------------------- main
@@ -279,9 +361,11 @@ def build(args) -> None:
     os.replace(f"{w}/oracle.txt.part", f"{w}/oracle.txt")
 
 
-def run_worker(args, tree: str) -> dict:
+def run_worker(args, tree: str, route: str | None = None) -> dict:
     cmd = [sys.executable, os.path.abspath(__file__), "--worker", "--tree", tree,
            "--work", args.work, "--device", args.device, "--calls", str(args.calls)]
+    if route:
+        cmd += ["--fresh-worker", route]
     r = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
     if r.returncode != 0:
         raise RuntimeError(f"worker on {tree} exited {r.returncode}:\n"
@@ -312,6 +396,7 @@ def medians(runs: list[dict], route: str) -> dict:
                     for k in names}
     return {
         "wall_mean": med([r["wall_mean"] for r in rs]),
+        "outside_s": med([r["outside_s"] for r in rs]),
         "stages": {k: med([r["stages"].get(k, 0.0) for r in rs])
                    for k in sorted({k for r in rs for k in r["stages"]})},
         "split": split, "hits": rs[0]["hits"],
@@ -332,13 +417,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--work")
     ap.add_argument("--out")
+    ap.add_argument("--fresh", type=int, default=0, metavar="N")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--fresh-worker", dest="route", choices=ROUTES,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.calls < 1:
         ap.error("--calls must be at least 1")
     args.tree = os.path.abspath(args.tree)
     if args.worker:
-        print(json.dumps(worker(args)))
+        print(json.dumps(fresh_worker(args) if args.route else worker(args)))
         return 0
     if args.compare and not args.parent:
         ap.error("--compare needs --parent DIR")
@@ -361,7 +449,31 @@ def main(argv: list[str] | None = None) -> int:
                          "samples": args.samples, "sample_codes": args.sample_codes,
                          "seed": args.seed},
                "calls": args.calls, "card": card()}
-    if not args.compare:
+    if args.fresh:
+        trees = {"change": args.tree}
+        if args.parent:
+            trees["parent"] = os.path.abspath(args.parent)
+        walls = {t: {r: [] for r in ROUTES} for t in trees}
+        for i in range(args.fresh):
+            order = sorted(trees, reverse=i % 2 == 1)
+            for r in ROUTES:
+                for tag in order:
+                    run = run_worker(args, trees[tag], r)
+                    run["tag"], run["round"] = tag, i
+                    walls[tag][r].append(run["wall"])
+                    emit(run)
+        summary["fresh"] = args.fresh
+        summary["routes"] = {r: {t: {"walls": walls[t][r],
+                                     "median_s": statistics.median(walls[t][r])}
+                                 for t in trees} for r in ROUTES}
+        if args.parent:
+            for r in ROUTES:
+                diff = [c - p for c, p in zip(walls["change"][r], walls["parent"][r])]
+                summary["routes"][r].update(
+                    change_less_parent_s=diff,
+                    change_less_parent_median_s=statistics.median(diff),
+                    rounds_lower=sum(d < 0 for d in diff))
+    elif not args.compare:
         run = run_worker(args, args.tree)
         emit(run)
         summary["routes"] = {r: medians([run], r) for r in ROUTES}

@@ -200,6 +200,9 @@ def _patch(spans: Spans, name: str, module, state: dict) -> None:
         w(module, "read_shuf", "shuf_read")
         w(module, "read_mco_stat", "stat_read")
         w(module, "read_co_stat", "stat_read")
+    elif name == f"{PORT}.stattab":
+        w(module, "read_mco_stat_table", "stat_read")
+        w(module, "read_co_stat_table", "stat_read")
     elif name == f"{PORT}.shufspace":
         w(module, "detect", "detect")
     elif name == f"{PORT}.pipeline":

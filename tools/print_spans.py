@@ -32,8 +32,18 @@ main thread waits for them) and ``load_gb_s`` over the whole stage.
 * ``count.skf``: writing ``sharedk_ct.dat``;
 * ``count``: the rest of the stage.
 
+``stat.read``: reading a stat file (``formats.read_co_stat`` and
+``read_mco_stat``, and ``stattab.read_co_stat_table`` and
+``read_mco_stat_table`` where the tree has them), wherever it runs:
+``stat_read_s`` splits its seconds a call by the stage it ran in
+(``outside``: before the first stage; a tree whose loader reads
+mcofiles.stat again does so in ``load_index``). ``outside_s`` is the
+mean wall less the mean of the logged stages.
+
 ``print``:
 
+* ``print.names``: the formatter's name tables (``native.Names``, the
+  query's and the references');
 * ``print.wait``: waiting for the next block of lines from the
   formatting threads (``ops/stats.py`` ``_write_native``);
 * ``print.write``: writing a formatted block to ``distance.out``;
@@ -103,6 +113,7 @@ name; ``--out`` also writes them to a file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -226,6 +237,52 @@ def fresh_calls(argv: list[str], n: int, timeout: float = 900) -> dict:
     runs = fresh_start.fresh_runs(argv, n, timeout, clean=argv[argv.index("-o") + 1])
     return {**fresh_start.summary(runs),
             "stages_s": [r["at"]["stages"] for r in runs], "runs": runs}
+
+
+@contextlib.contextmanager
+def stat_spans():
+    """Spans ``stat.read`` around the stat readers and ``print.names``
+    around ``native.Names``, for clocked calls (the spans go to whatever
+    ``torch.profiler.record_function`` is when they run). Yields a dict:
+    the stage a stat read ran in (the outermost open span; ``outside``
+    when none) -> its seconds."""
+    import torch
+
+    from public_kssd_tpu_torch import formats, native
+
+    try:
+        from public_kssd_tpu_torch import stattab
+    except ImportError:  # a tree that reads every stat file as a list
+        stattab = None
+    where: dict[str, float] = {}
+
+    def spanned(name, fn):
+        def wrapped(*a, **k):
+            rf = torch.profiler.record_function
+            stack = getattr(rf, "_stack", None)
+            t = time.perf_counter()
+            try:
+                with rf(name):
+                    return fn(*a, **k)
+            finally:
+                if name == "stat.read":
+                    stage = stack[0][0] if stack else "outside"
+                    where[stage] = where.get(stage, 0.0) + time.perf_counter() - t
+        return wrapped
+
+    wraps = [(formats, "read_co_stat", "stat.read"),
+             (formats, "read_mco_stat", "stat.read"), (native, "Names", "print.names")]
+    if hasattr(stattab, "read_co_stat_table"):
+        wraps += [(stattab, "read_co_stat_table", "stat.read"),
+                  (stattab, "read_mco_stat_table", "stat.read")]
+    saved = [(m, f, getattr(m, f)) for m, f, _ in wraps]
+    for m, f, name in wraps:
+        setattr(m, f, spanned(name, getattr(m, f)))
+    try:
+        yield where
+    finally:
+        for m, f, fn in saved:
+            setattr(m, f, fn)
 
 
 def load_child(sref: str, route: str, threads: int, reps: int, device: str) -> dict:
@@ -391,8 +448,12 @@ def main(argv: list[str] | None = None) -> int:
                       **split(self_s, self_s.get("load_index")), **res})
         print(json.dumps(lines[-1]), flush=True)
     if args.clock:
-        res = clocked_calls(dist("c"), args.clock)
+        with stat_spans() as stat_where:
+            res = clocked_calls(dist("c"), args.clock)
         res.update(split(res["self_s"], res["stages_s"].get("load_index")))
+        res["stat_read_s"] = {k: v / args.clock for k, v in stat_where.items()}
+        res["outside_s"] = (sum(res["walls_s"]) / args.clock
+                            - sum(res["stages_s"].values()))
         floor = os.path.join(args.work, "floor")
         res["write_floor_s"] = write_floor(floor, size, args.clock)
         res["write_floor_par_s"] = write_floor_par(
