@@ -173,13 +173,25 @@ Phases, each of which raises on failure (the exit code is then nonzero):
               per k-mer and sketched again on the card: each query's codes
      9d. primer (44 primes) and convert krona / qiime / cami on a seeded
               report of 40 references: their line counts
+ 10. the Python entry points called with no device, as a library user
+     calls them: search.search and compute_shared_counts on phase 5's
+     DB, species_abundance on phase 7a's koc samples (CSR route) and 7b's
+     GTDB-shaped DB (raw route), abv_search_device -s 0 on 7a's .abv
+     files: each launches its kernel (count, join) or allocates its
+     dense matrix on the card and gives the bytes of the same call given
+     cuda:0; and in a subprocess distributed.initialize with no device: a
+     one-rank nccl group on card 0 whose all_reduce of a CUDA tensor
+     sums, and a mesh 1x1 search under it byte-equal to the one-card
+     run (one card cannot hold two nccl ranks: the two-rank group is a
+     CPU test)
 
 Launch counts are reset before phase 4 and read after phase 5 (sketch,
 count), reset before phase 6 and read after it (sketch_wide), reset
 before phase 7 and read after it (count_koc, join on each route), and
 reset before phase 8 and read after it (count64, count_koc64, join64).
-Phase 9 resets them again and logs its own launches; they are not in the
-JSON line of per-kernel results. The output ends with a JSON line of per-kernel results, the card's name and
+Phase 9 resets them again and logs its own launches, and phase 10 resets
+them before each call and logs each call's; neither is in the JSON line
+of per-kernel results. The output ends with a JSON line of per-kernel results, the card's name and
 power limit from nvidia-smi, and the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Everything the run writes goes under build/chip_smoke/ in the checkout
@@ -2226,6 +2238,145 @@ def phase_convert(work: str) -> None:
     log(f"[host] primer: 44 primes ({t:.3f} s); convert krona {len(lines)} lines, "
         f"qiime otu.tsv {n_otu}, cami {len(cami.splitlines())}")
 
+# phase 10e: a one-rank group made with no device, then a mesh search
+# under it (argv: address, sref, sqry, out); prints what it saw as JSON
+DEFAULT_GROUP = """
+import json, sys
+import torch
+import torch.distributed as dist
+from public_kssd_tpu_torch import kernels, parallel, search
+from public_kssd_tpu_torch.parallel import distributed
+address, sref, sqry, out = sys.argv[1:]
+ranks = distributed.initialize(address, 1, 0)
+t = torch.full((4,), 3.0, device="cuda")
+dist.all_reduce(t)
+got = {"ranks": ranks, "backend": dist.get_backend(),
+       "current": torch.cuda.current_device(), "sum": t.tolist(),
+       "on": str(t.device)}
+search.search(sref, sqry, out, mesh=parallel.make_mesh(1, 1))
+got["count64"] = kernels.count64_kernel.launches
+print(json.dumps(got))
+"""
+
+
+def phase_defaults(work: str, gtdb_oracle: str) -> dict[str, int]:
+    """10: the Python entry points as a library user calls them, with no
+    device, on the data of phases 5 and 7: each launches its kernel on
+    the card and gives the bytes of the same call given ``cuda:0``.
+    Returns each call's launches of its kernel. The one-rank nccl group
+    runs in a subprocess beside the in-process calls; one card cannot
+    hold two nccl ranks, so the two-rank group stays a CPU (gloo) test."""
+    import socket
+
+    import torch
+
+    from public_kssd_tpu_torch import composite, formats, index, kernels, search
+
+    card = torch.device("cuda", 0)
+    sref, sqry = f"{work}/sref", f"{work}/sqry"
+    d = f"{work}/defaults"
+    os.makedirs(d)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    # its output goes to files: a pipe left unread while this process
+    # works could fill and stop it
+    with open(f"{d}/group.out", "w") as out, open(f"{d}/group.err", "w") as err:
+        group = subprocess.Popen(
+            [sys.executable, "-c", DEFAULT_GROUP, f"127.0.0.1:{port}", sref, sqry,
+             f"{d}/mesh"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=out, stderr=err)
+    launches = {}
+
+    def default_call(name, kernel, fn):
+        for k in kernels.ALL:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = kernel.launches
+        if not kernel.launches:
+            raise AssertionError(f"{name} with no device launched no {kernel.name} "
+                                 "kernel")
+        return out
+
+    try:
+        default_call("search.search", kernels.count_kernel,
+                     lambda: search.search(sref, sqry, f"{d}/search"))
+        search.search(sref, sqry, f"{d}/search_card", device=card)
+        size = same_bytes(f"{d}/search/distance.out", f"{d}/search_card/distance.out")
+        same_bytes(f"{d}/search/distance.out", f"{work}/sout/distance.out")
+        shutil.rmtree(f"{d}/search")
+
+        n_qry = formats.read_co_stat(sqry).infile_num
+        _, comps = index.load_device_index(sref, card)
+        counts = default_call("search.compute_shared_counts", kernels.count_kernel,
+                              lambda: search.compute_shared_counts(sqry, comps, n_qry))
+        want = search.compute_shared_counts(sqry, comps, n_qry, card)
+        del comps
+        if counts.tobytes() != want.tobytes() or not counts.any():
+            raise AssertionError("compute_shared_counts with no device differs from "
+                                 "cuda:0's")
+
+        reports = {}
+        for route, ref, qry, oracle in (
+                ("csr", f"{work}/ref", f"{work}/meta/koc", None),
+                ("raw", f"{work}/gtdb/ref", f"{work}/gtdb/qry", gtdb_oracle)):
+            rep = default_call(f"composite.species_abundance ({route})",
+                               kernels.join_kernel,
+                               lambda: composite.species_abundance(ref, qry))
+            if rep != composite.species_abundance(ref, qry, device=card) or not rep or (
+                    oracle is not None and rep != oracle):
+                raise AssertionError(f"species_abundance ({route}) with no device "
+                                     "differs from cuda:0's or the host oracle")
+            reports[route] = len(rep)
+
+        ref = f"{work}/ref"
+        base = f"{ref}/{composite.BINVEC_DIRNAME}"
+        query = sorted(n for n in os.listdir(base) if n.endswith(".abv"))[0]
+        with open(base + ".name") as f:
+            n_samples = sum(1 for ln in f if ln.strip())
+        dense_bytes = n_samples * (os.path.getsize(base + ".abmi") // 4) * 4
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        searched = composite.abv_search_device(ref, [query], 0)
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - before
+        peak = torch.cuda.max_memory_allocated() - held
+        if (searched != composite.abv_search_device(ref, [query], 0, card)
+                or not searched or not allocs or peak < dense_bytes):
+            raise AssertionError(f"abv_search_device with no device: {allocs} card "
+                                 f"allocations, peak {peak} B for a {dense_bytes} B "
+                                 "dense matrix, or a report other than cuda:0's")
+
+        rc = group.wait(timeout=240)
+        with open(f"{d}/group.out") as out, open(f"{d}/group.err") as err:
+            out, err = out.read(), err.read()
+        if rc != 0:
+            raise AssertionError(f"one-rank group exited {rc}: {err[-3000:]}")
+        got = json.loads(out.splitlines()[-1])
+        if (got["ranks"] != [0, 1] or got["backend"] != "nccl" or got["current"] != 0
+                or got["sum"] != [3.0] * 4 or got["on"] != "cuda:0"
+                or not got["count64"]):
+            raise AssertionError(f"initialize with no device: {got}")
+        same_bytes(f"{d}/mesh/distance.out", f"{d}/search_card/distance.out")
+        launches["search.search (one-rank nccl mesh 1x1)"] = got["count64"]
+    finally:
+        if group.poll() is None:
+            group.kill()
+            group.wait()
+    log(f"[defaults] search.search with no device: distance.out {size} B byte-equal "
+        f"to cuda:0's and to phase 5's CLI search; compute_shared_counts "
+        f"{n_qry} x {want.shape[1]} equal to cuda:0's; species_abundance reports "
+        f"({reports} chars) equal to cuda:0's, the raw one to 7b's host oracle; "
+        f"abv_search_device -s 0 of {query} on the card ({allocs} card allocations, "
+        f"peak {peak} B above what was held, for the {dense_bytes} B dense matrix) "
+        f"equal to cuda:0's; "
+        f"initialize with no device: {got}, its mesh search byte-equal to the "
+        "one-card run")
+    shutil.rmtree(d)
+    return launches
+
 
 def main() -> int:
     if len(sys.argv) > 1:
@@ -2283,6 +2434,10 @@ def main() -> int:
     phase_convert(work)
     log(f"[host] phase 9 in {time.perf_counter() - t9:.1f} s; launches (not in the "
         f"kernels line): {({k.name: k.launches for k in kernels.ALL})}")
+    t10 = time.perf_counter()
+    defaults = phase_defaults(work, gtdb_oracle)
+    log(f"[defaults] phase 10 in {time.perf_counter() - t10:.1f} s; each call's "
+        f"launches of its kernel (not in the kernels line): {defaults}")
     for name, n in list(launches.items()) + [
         ("count (wide path)", wide["count"]),
         ("sketch (abundance path)", abundance["sketch"]),

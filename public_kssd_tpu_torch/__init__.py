@@ -47,7 +47,8 @@ def resolve_device(name: str | torch.device) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {str(name)!r} requested but torch.cuda.is_available() "
-                "is False; pass --device cpu to run the plain PyTorch path"
+                "is False; pass --device cpu (device=\"cpu\" from Python) to "
+                "run the plain PyTorch path"
             )
         if dev.index is None:
             # "cuda" and "cuda:0" compare unequal: always name the card

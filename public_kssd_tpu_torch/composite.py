@@ -686,7 +686,7 @@ def species_abundance(
     qry_dir: str,
     out_dir: str | None = None,
     binvec: bool = False,
-    device: torch.device | str | None = None,
+    device: torch.device | str | None = "cuda",
     ref_components=None,
 ) -> str:
     """-r/-q composition analysis; returns the text report. With
@@ -694,7 +694,9 @@ def species_abundance(
     command_composite.c:389-547).
 
     ``device=None`` runs the host oracle (a per-query vectorised join
-    over the raw DB codes). A torch device builds the query table
+    over the raw DB codes). A torch device, a card by default (raising
+    when none is visible, before any work; ``"cpu"`` for the plain
+    PyTorch path), builds the query table
     (``_query_table_device``), runs ``join_kernel`` and reduces the hit
     keys (``_hits_to_stats_torch``) there, for all queries at once:
     over the stage II inverted index when
@@ -706,6 +708,8 @@ def species_abundance(
     ``_raw_device_components`` reads straight onto the device. Every
     backend yields the same integer aggregates, so the report text is the
     same bytes."""
+    if device is not None:
+        device = resolve_device(device)
     # names in bulk: the report decodes only those it writes
     ref_stat = stattab.read_co_stat_table(ref_dir)
     qry_stat = stattab.read_co_stat_table(qry_dir)
@@ -723,7 +727,6 @@ def species_abundance(
                 _query_stats_host(comps, qn, n_ref) for qn in range(n_qry)
             ]
     else:
-        device = resolve_device(device)
         if (
             ref_components is None
             and os.path.isfile(os.path.join(ref_dir, "mco.uniq.0"))
@@ -938,8 +941,10 @@ def abv_search(ref_dir: str, queries: list[str], mode: int) -> str:
 
 
 def abv_search_device(ref_dir: str, queries: list[str], mode: int,
-                      device: torch.device | str = "cpu") -> str:
-    """Dense formulation of the .abv sample search on a torch device:
+                      device: torch.device | str = "cuda") -> str:
+    """Dense formulation of the .abv sample search on a torch device, a
+    card by default (raising when none is visible; any torch device,
+    ``"cpu"`` included, may be given):
     abundance vectors densify to a float32 [n_samples, n_species]
     matrix; cosine similarity is one matrix-vector product
     (``torch.matmul``, full float32: TF32 is off by default for

@@ -476,18 +476,21 @@ def count_shared_tensors(
     qry_index: np.ndarray,
     sparse_index,
     n_qry: int,
-    device: torch.device | None = None,
+    device: torch.device | str | None = "cuda",
     qry_weights: np.ndarray | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """One component's counts of all queries, left where they were made:
     (int32 [n_qry, n_ref] bit view of the uint32 shared-code counts,) and,
     with ``qry_weights`` (uint32, one a query code), the int64 bit view of
-    the uint64 abundance-weighted sums beside it. ``device=None`` runs
-    the host oracle (CPU tensors over its arrays); a device runs
-    ``count_shared_kernel`` / ``count_shared_koc_kernel`` on it, one walk
-    of the index for both matrices. Sums of these bit views over
+    the uint64 abundance-weighted sums beside it. A device, a card by
+    default (raising when none is visible), runs ``count_shared_kernel``
+    / ``count_shared_koc_kernel`` on it, one walk of the index for both
+    matrices (on the CPU their plain versions); ``device=None`` runs the
+    host oracle (CPU tensors over its arrays). Sums of these bit views over
     components wrap as the unsigned sums do."""
     shape = (n_qry, sparse_index.n_genomes)
+    if device is not None:
+        device = resolve_device(device)
     if device is None:
         args = (qry_codes, qry_index, sparse_index.uniq_codes,
                 sparse_index.offsets, sparse_index.gids, n_qry, shape[1])
@@ -496,7 +499,6 @@ def count_shared_tensors(
             out += (count_shared_weighted_np(*args[:2], qry_weights, *args[2:]),)
         return tuple(torch.from_numpy(a.view(f"i{a.itemsize}")) for a in out)
     if qry_codes.size == 0:
-        device = resolve_device(device)
         out = (torch.zeros(shape, dtype=torch.int32, device=device),)
         if qry_weights is not None:
             out += (torch.zeros(shape, dtype=torch.int64, device=device),)
@@ -521,11 +523,11 @@ def count_shared(
     qry_index: np.ndarray,
     sparse_index,
     n_qry: int,
-    device: torch.device | None = None,
+    device: torch.device | str | None = "cuda",
 ) -> np.ndarray:
     """Count shared k-mers of all queries against one component's index
-    -> uint32 [n_qry, n_ref]. ``device=None`` runs the host oracle; a
-    device runs ``count_shared_kernel`` on it."""
+    -> uint32 [n_qry, n_ref]. A device, a card by default, runs
+    ``count_shared_kernel`` on it; ``device=None`` runs the host oracle."""
     (counts,) = count_shared_tensors(qry_codes, qry_index, sparse_index,
                                      n_qry, device)
     return counts.cpu().numpy().view(np.uint32)
@@ -537,13 +539,13 @@ def count_shared_koc(
     qry_weights: np.ndarray,
     sparse_index,
     n_qry: int,
-    device: torch.device | None = None,
+    device: torch.device | str | None = "cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Shared-code counts and abundance-weighted counts (each matched
     pair adds its query code's ``qry_weights`` entry, uint32) of all
     queries against one component -> (uint32, uint64) [n_qry, n_ref].
-    ``device=None`` runs the host oracle; a device runs
-    ``count_shared_koc_kernel`` on it: one walk for both matrices."""
+    A device, a card by default, runs ``count_shared_koc_kernel`` on it:
+    one walk for both matrices; ``device=None`` runs the host oracle."""
     counts, weighted = count_shared_tensors(qry_codes, qry_index, sparse_index,
                                             n_qry, device, qry_weights)
     return (counts.cpu().numpy().view(np.uint32),
@@ -556,7 +558,7 @@ def count_shared_weighted(
     qry_weights: np.ndarray,
     sparse_index,
     n_qry: int,
-    device: torch.device | None = None,
+    device: torch.device | str | None = "cuda",
 ) -> np.ndarray:
     """Abundance-weighted shared counts of all queries vs one component
     -> uint64 [n_qry, n_ref] (``count_shared_koc``'s second matrix)."""

@@ -30,15 +30,17 @@ MANIFEST = "manifest.json"
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
-               device: str = "cpu") -> tuple[int, int]:
+               device: str = "cuda") -> tuple[int, int]:
     """Initialise torch.distributed when running multi-process; returns
     (process_index, process_count). Safe to call in one process (no-op).
 
     ``coordinator_address`` is ``host:port`` of rank 0's rendezvous (a
-    free port); the backend is gloo for CPU tensors and nccl for CUDA
-    (``device``), where each process takes card ``process_id`` modulo the
-    visible cards as its current device. The group is destroyed when
-    the interpreter exits (``_destroy_at_exit``)."""
+    free port). On the default ``device``, a card, the backend is nccl
+    and each process takes card ``process_id`` modulo the visible cards
+    as its current device, so ``parallel.make_mesh`` lays rank r on that
+    card; it raises when no card is visible (no CPU fallback).
+    ``device="cpu"`` gives a gloo group on the CPU. The group is
+    destroyed when the interpreter exits (``_destroy_at_exit``)."""
     import torch
     import torch.distributed as dist
 
@@ -47,7 +49,14 @@ def initialize(coordinator_address: str | None = None,
     if coordinator_address is not None and not dist.is_initialized():
         cuda = torch.device(device).type == "cuda"
         if cuda:
-            torch.cuda.set_device(process_id % torch.cuda.device_count())
+            cards = torch.cuda.device_count()
+            if not cards:
+                raise RuntimeError(
+                    f"initialize: device {device!r} needs a CUDA card for its "
+                    "nccl group and none is visible; pass device=\"cpu\" "
+                    "(--device cpu) for a gloo group on the CPU"
+                )
+            torch.cuda.set_device(process_id % cards)
         dist.init_process_group(
             "nccl" if cuda else "gloo",
             init_method=f"tcp://{coordinator_address}",

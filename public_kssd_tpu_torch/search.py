@@ -8,9 +8,9 @@ memory-governed query batching (:707-768), and the opt-in koc
 (abundance-weighted) output appendix (koc_dist_print_nobin,
 command_dist.c:1080-1160 — dead code in the reference, see
 ops/stats.format_koc_pair_line). Counting runs on a torch device
-(csrc/count.cu on a CUDA card) or, with ``device=None``, in the host
-oracle; with a ``parallel.Mesh`` it runs DB-sharded over the mesh's
-devices (parallel/sharded_search.py).
+(csrc/count.cu on a CUDA card, the default) or, with ``device=None``,
+in the host oracle; with a ``parallel.Mesh`` it runs DB-sharded over
+the mesh's devices (parallel/sharded_search.py).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ import os
 import numpy as np
 import torch
 
-from public_kssd_tpu_torch import formats, index as index_mod, stattab, utils
+from public_kssd_tpu_torch import (formats, index as index_mod, resolve_device,
+                                   stattab, utils)
 from public_kssd_tpu_torch.ops import count as count_ops
 from public_kssd_tpu_torch.ops import stats as stats_ops
 
@@ -45,7 +46,7 @@ def compute_shared_counts(
     qry_dir: str,
     ref_components: list,
     n_qry: int,
-    device: torch.device | None = None,
+    device: torch.device | str | None = "cuda",
     counts_out: np.ndarray | None = None,
     batch: int = 0,
     koc_out: np.ndarray | None = None,
@@ -54,15 +55,19 @@ def compute_shared_counts(
 
     ``ref_components`` are ``index.SparseIndex`` objects, or on a device
     the ``ops.count.DeviceIndex`` objects of ``index.load_device_index``.
-    ``device`` runs the counting there (``None``: the host oracle); each
-    batch of query rows is summed over the components where it was
-    counted and copied once into its rows of the result. ``counts_out``
+    ``device`` runs the counting there: a card by default (raising when
+    none is visible), ``"cpu"`` for the plain PyTorch path, ``None`` for
+    the host oracle; each batch of query rows is summed over the
+    components where it was counted and copied once into its rows of
+    the result. ``counts_out``
     (e.g. a np.memmap over sharedk_ct.dat) bounds host RAM the way the
     reference's mmap does; ``batch`` bounds the query rows materialised
     per device call; ``koc_out`` additionally receives abundance-weighted
     counts from the query ``.a`` files, made in the same walk of the
     index (``count_ops.count_shared_tensors``).
     """
+    if device is not None:
+        device = resolve_device(device)
     n_ref = ref_components[0].n_genomes
     counts = (
         counts_out
@@ -97,7 +102,7 @@ def search(
     qry_dir: str,
     out_dir: str,
     opts: stats_ops.OutputOptions | None = None,
-    device: torch.device | None = None,
+    device: torch.device | str | None = "cuda",
     keep_shared_kmer: bool = False,
     shared_kmer_path: str | None = None,
     mesh=None,
@@ -116,7 +121,9 @@ def search(
     queries through counting and disk-backs the count matrix (that file,
     removed after printing unless kept) so peak RAM is bounded by the
     budget, not the DB size; with neither, no file is written.
-    ``device`` runs the counting there (``None``: the host oracle).
+    ``device`` runs the counting there: a card by default (raising when
+    none is visible, before any work), ``"cpu"`` for the plain PyTorch
+    path, ``None`` for the host oracle.
     ``koc`` appends the abundance-weighted table when the query dir
     carries ``.a`` files.
     With ``mesh`` (a ``parallel.Mesh``; it takes the place of ``device``)
@@ -136,6 +143,11 @@ def search(
                 f"mesh must be a public_kssd_tpu_torch.parallel.Mesh, not "
                 f"{type(mesh).__name__}"
             )
+    elif isinstance(device, str):
+        # a name ("cuda", the default) is resolved before any work, so a
+        # host with no card raises here; a torch.device (the CLI's, which
+        # it resolved) is checked at its first device call, after ``ready``
+        device = resolve_device(device)
     opts = opts or stats_ops.OutputOptions()
     timer = utils.TracedStageTimer()
     # each stat file read once, its names in bulk (the print formats

@@ -137,7 +137,7 @@ def test_csr_route_shares_the_search_index(tmp_path):
     got = composite.species_abundance(ref_dir, qry_dir, device=CPU,
                                       ref_components=[sp])
     assert count.DeviceIndex.from_sparse(sp, CPU) is dev
-    assert got == composite.species_abundance(ref_dir, qry_dir) and got
+    assert got == composite.species_abundance(ref_dir, qry_dir, device=None) and got
 
 
 def test_species_abundance_rejects_plain_query(gold):

@@ -117,7 +117,7 @@ def _run_workers(tmp_path, body: str, n: int = 2, prelude: str = "") -> list[str
         from public_kssd_tpu_torch.parallel import distributed
     """) + textwrap.dedent(prelude) + textwrap.dedent(f"""
         pid, world = distributed.initialize("127.0.0.1:{port}", {n},
-                                            int(sys.argv[1]))
+                                            int(sys.argv[1]), device="cpu")
         assert world == {n} and pid == int(sys.argv[1])
         cpu4 = [torch.device("cpu")] * 4
     """) + textwrap.dedent(body))

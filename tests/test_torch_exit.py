@@ -287,13 +287,22 @@ def test_failure_runs_the_interpreters_exit(tmp_path):
 def test_live_thread_keeps_the_interpreters_exit(in_process, tmp_path):
     """A thread that is not a daemon and still runs when ``main`` returns
     is waited for, as the interpreter's exit waits: its file is written
-    and the atexit handler runs."""
+    and the atexit handler runs. The thread starts its sleep only once
+    ``close_out`` has returned, so it is alive there however long the
+    import and ``main`` take; a ``close_out`` that ended the process
+    would leave the file unwritten."""
     mark = tmp_path / "late"
     code = ("import atexit, sys, threading, time\n"
             "atexit.register(lambda: print('atexit ran', file=sys.stderr))\n"
-            f"def late():\n    time.sleep(0.5)\n    open({str(mark)!r}, 'w').write('done')\n"
+            "closed = threading.Event()\n"
+            "def late():\n    closed.wait()\n    time.sleep(0.5)\n"
+            f"    open({str(mark)!r}, 'w').write('done')\n"
             "threading.Thread(target=late).start()\n"
             "from public_kssd_tpu_torch import cli\n"
+            "close_out = cli.close_out\n"
+            "def closing(rc):\n    try:\n        return close_out(rc)\n"
+            "    finally:\n        closed.set()\n"
+            "cli.close_out = closing\n"
             "sys.exit(cli.entry(sys.argv[1:]))\n")
     r = _run(["-c", code], ["set", "-P", in_process["stage1"][1]])
     assert r.returncode == 0, r.stderr.decode()
@@ -327,7 +336,8 @@ def test_two_process_group_survives_the_close_out(tmp_path):
         from public_kssd_tpu_torch.parallel import distributed
         # registered first, so it runs after initialize's teardown
         atexit.register(lambda: print("destroyed:", not dist.is_initialized()))
-        pid, world = distributed.initialize("127.0.0.1:{port}", 2, int(sys.argv[1]))
+        pid, world = distributed.initialize("127.0.0.1:{port}", 2, int(sys.argv[1]),
+                                            device="cpu")
         t = torch.full((4,), float(pid + 1))
         dist.all_reduce(t)
         assert t.tolist() == [3.0] * 4, t

@@ -98,7 +98,8 @@ DIFFERING = {
     # directory, not at the original's absolute path
     "synthdb": {"REAL_GTDB_INDEX"},
     # the device joins run csrc/join.cu (no capacity retry, no
-    # DEVICE_JOIN_THRESHOLD auto-selection, device=None is the host
+    # DEVICE_JOIN_THRESHOLD auto-selection: species_abundance and
+    # abv_search_device default to the card, device=None is the host
     # oracle); the dense -s search is torch; --mesh runs
     # parallel/sharded_composite on a torch device mesh; the CSR route
     # (species_abundance, _csr_stats_device) reads its index straight
@@ -118,8 +119,9 @@ DIFFERING = {
         "_overflow_retry", "_batched_stats_device", "_csr_stats_device",
         "species_abundance", "abv_search_device", "cmd_composite",
     },
-    # torch.distributed instead of jax.distributed, its group destroyed
-    # at exit (_destroy_at_exit); stage I on a torch device
+    # torch.distributed instead of jax.distributed (initialize: nccl and
+    # card rank % cards by default, gloo with device="cpu"), its group
+    # destroyed at exit (_destroy_at_exit); stage I on a torch device
     "parallel/distributed": {"initialize", "_destroy_at_exit", "sketch_shard"},
     # ragged shards on a torch device mesh, counted by csrc/count.cu's
     # 64-bit-key instances: no padding, rank tables, pair capacity,

@@ -182,7 +182,7 @@ def test_search_batched_keepskf_and_resume(slice7):
     skf = f"{out}/sharedk_ct.dat"
     resumed = f"{slice7}/torch_f"
     search.search(f"{slice7}/torch_ref", f"{slice7}/torch_qry", resumed,
-                  shared_kmer_path=skf)
+                  device=CPU, shared_kmer_path=skf)
     assert_files_equal(f"{slice7}/distout/distance.out",
                        f"{resumed}/distance.out")
 
@@ -231,7 +231,7 @@ def test_koc_search_resume_rejected(slice7):
     search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc", out, device=CPU,
                   keep_shared_kmer=True)
     with pytest.raises(ValueError, match="koc"):
-        search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc", out,
+        search.search(f"{slice7}/torch_ref", f"{slice7}/fq_koc", out, device=CPU,
                       shared_kmer_path=f"{out}/sharedk_ct.dat", koc=True)
 
 
